@@ -1,0 +1,69 @@
+"""Carry weights across from the JAX package's Flax parameter tree.
+
+The Flax modules mirror the reference torch attribute names with list
+indices flattened (``RDBs.3`` -> ``RDBs_3``, ``conv.0`` -> ``conv_0``) and
+keep conv kernels as HWIO. This maps such a tree, given as numpy arrays,
+to the port's ``state_dict``, whose keys and shapes are the reference
+torch model's:
+
+  params/FF_RDB_Module/RDBs_3/convs_2/conv_0/kernel  [kH,kW,I,O]
+      -> FF_RDB_Module.RDBs.3.convs.2.conv.0.weight  [O,I,kH,kW]
+  params/Dec_first/kernel  [3,3,I,O]
+      -> Dec_first.weight  [O,I,1,3,3]   (Conv3d, temporal extent 1)
+  */bias -> *.bias  (unchanged)
+"""
+from __future__ import annotations
+
+import re
+from typing import Any, Dict, Mapping, Tuple
+
+import numpy as np
+import torch
+
+# containers that are lists in the torch model: a trailing _N splits back
+_LIST_PREFIXES = ("RDBs", "convs", "conv", "GFF", "UPNet",
+                  "feature_extraction", "Decoder_res", "Decoder_res_2")
+# torch modules that are Conv3d in the reference
+_CONV3D_PREFIXES = ("Dec_first.", "Decoder_res.", "Dec_last1.", "Dec_last2.")
+
+
+def flax_path_to_torch_key(path: Tuple[str, ...]) -> str:
+    """('FF_RDB_Module', 'RDBs_3', 'LFF', 'kernel') ->
+    'FF_RDB_Module.RDBs.3.LFF.weight'."""
+    parts = []
+    for p in path[:-1]:
+        m = re.fullmatch(r"(.*)_(\d+)", p)
+        if m and m.group(1) in _LIST_PREFIXES:
+            parts.extend([m.group(1), m.group(2)])
+        else:
+            parts.append(p)
+    leaf = "weight" if path[-1] == "kernel" else path[-1]
+    return ".".join(parts + [leaf])
+
+
+def _kernel_to_weight(k: np.ndarray, conv3d: bool) -> np.ndarray:
+    """HWIO -> OIHW, plus a temporal axis of 1 for the Conv3d layers."""
+    w = np.transpose(k, (3, 2, 0, 1))
+    return w[:, :, None] if conv3d else w
+
+
+def flax_params_to_state_dict(variables: Mapping[str, Any]
+                              ) -> Dict[str, torch.Tensor]:
+    """{'params': nested numpy tree} -> the port's state_dict (float32
+    CPU tensors), loadable with ``load_state_dict(..., strict=True)``."""
+    out: Dict[str, torch.Tensor] = {}
+
+    def walk(node, path):
+        for name, val in node.items():
+            if isinstance(val, Mapping):
+                walk(val, path + (name,))
+                continue
+            key = flax_path_to_torch_key(path + (name,))
+            arr = np.asarray(val, np.float32)
+            if name == "kernel":
+                conv3d = any(key.startswith(p) for p in _CONV3D_PREFIXES)
+                arr = _kernel_to_weight(arr, conv3d)
+            out[key] = torch.from_numpy(np.ascontiguousarray(arr))
+
+    walk(variables["params"], ())
+    return out
