@@ -16,8 +16,10 @@ Layout conventions:
   - the inference engine's public surface keeps the JAX package's
     layout: numpy frames [N, 4, H, W, 3] in, NHWC numpy results out.
 
-Entry points run on ``cuda`` unless the caller passes ``device="cpu"``;
-with no GPU present and no explicit CPU request they raise.
+Entry points (the inference engine, and ``python -m demfi_torch.main``
+for the reference's ``test`` / ``test_custom`` phases) run on ``cuda``
+unless the caller passes ``device="cpu"`` / ``--device cpu``; with no
+GPU present and no explicit CPU request they raise.
 """
 from __future__ import annotations
 

@@ -1,3 +1,9 @@
-from demfi_torch.checkpoint.convert import flax_params_to_state_dict
+from demfi_torch.checkpoint.convert import (
+    flax_params_to_state_dict,
+    load_checkpoint,
+    save_checkpoint,
+)
+from demfi_torch.checkpoint.manager import checkpoint_path, eval_checkpoint_tag
 
-__all__ = ["flax_params_to_state_dict"]
+__all__ = ["flax_params_to_state_dict", "load_checkpoint", "save_checkpoint",
+           "checkpoint_path", "eval_checkpoint_tag"]

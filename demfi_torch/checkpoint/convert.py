@@ -1,4 +1,11 @@
-"""Carry weights across from the JAX package's Flax parameter tree.
+"""Checkpoints in the reference's ``.pt`` layout, and weights carried
+across from the JAX package's Flax parameter tree.
+
+The port's ``state_dict`` keys and shapes are the reference torch
+model's, so a reference ``.pt`` loads with ``strict=True`` and no
+conversion. The JAX package's ``.msgpack`` checkpoints cross over with
+its own ``python -m demfi_tpu.tools export_pt``; the port does not read
+msgpack.
 
 The Flax modules mirror the reference torch attribute names with list
 indices flattened (``RDBs.3`` -> ``RDBs_3``, ``conv.0`` -> ``conv_0``) and
@@ -14,8 +21,9 @@ torch model's:
 """
 from __future__ import annotations
 
+import os
 import re
-from typing import Any, Dict, Mapping, Tuple
+from typing import Any, Dict, Mapping, Optional, Tuple
 
 import numpy as np
 import torch
@@ -67,3 +75,31 @@ def flax_params_to_state_dict(variables: Mapping[str, Any]
 
     walk(variables["params"], ())
     return out
+
+
+def load_checkpoint(path: str) -> Tuple[Dict[str, torch.Tensor],
+                                        Dict[str, Any]]:
+    """Load a ``.pt`` checkpoint -> (state_dict, metadata).
+
+    Accepts the reference's combined training checkpoint (a dict with
+    ``state_dict_Model`` beside ``last_epoch``, ``best_PSNR``, the
+    metrics and the optimizer's and scheduler's state) or a bare state
+    dict. The file is unpickled in full (the combined layout holds plain
+    Python and numpy values): load only checkpoints you trust."""
+    ckpt = torch.load(path, map_location="cpu", weights_only=False)
+    if "state_dict_Model" in ckpt:
+        meta = {k: v for k, v in ckpt.items()
+                if not k.startswith("state_dict")}
+        return ckpt["state_dict_Model"], meta
+    return ckpt, {}
+
+
+def save_checkpoint(path: str, state_dict: Mapping[str, torch.Tensor],
+                    meta: Optional[Mapping[str, Any]] = None) -> None:
+    """Write the combined layout: ``state_dict_Model`` (CPU tensors)
+    beside the metadata entries."""
+    ckpt: Dict[str, Any] = dict(meta or {})
+    ckpt["state_dict_Model"] = {k: v.detach().cpu()
+                                for k, v in state_dict.items()}
+    os.makedirs(os.path.dirname(os.path.abspath(path)), exist_ok=True)
+    torch.save(ckpt, path)

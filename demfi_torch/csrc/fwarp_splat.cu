@@ -24,6 +24,12 @@
 // order of the atomics varies from run to run, so results agree with the
 // plain version to rounding, not bitwise. The weights use
 // round-to-nearest intrinsics in the plain version's order.
+//
+// Guard: with `flag` not null the kernel does its work only where
+// *flag != 0, else every thread returns at once: the flag is the one that
+// fwarp_shift.cu computed (some |flo| lies beyond its window), and the
+// accumulator is the output that its launch cleared. When the kernel does
+// its work, one thread adds 1 to *served (if not null).
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -34,7 +40,12 @@ constexpr int kThreads = 256;
 __global__ void __launch_bounds__(kThreads)
 fwarp_splat_kernel(const float* __restrict__ img,
                    const float* __restrict__ flo, float* __restrict__ out,
-                   float* __restrict__ norm, int C, int H, int W) {
+                   float* __restrict__ norm, const int* __restrict__ flag,
+                   int* __restrict__ served, int C, int H, int W) {
+  if (flag != nullptr && *flag == 0) return;
+  if (served != nullptr && blockIdx.x == 0 && blockIdx.y == 0 &&
+      threadIdx.x == 0)
+    atomicAdd(served, 1);
   const int64_t hw = (int64_t)H * W;
   const int64_t p = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
   if (p >= hw) return;
@@ -72,16 +83,18 @@ fwarp_splat_kernel(const float* __restrict__ img,
 }  // namespace
 
 // img [B,C,H,W], flo [B,2,H,W], out [B,C,H,W] and norm [B,1,H,W] zeroed by
-// the caller. All float32, contiguous, on one device. Launches on `stream`
-// and returns cudaGetLastError().
+// the caller. All float32, contiguous, on one device. flag and served:
+// int32 on the device, or null. Launches on `stream` and returns
+// cudaGetLastError().
 extern "C" int demfi_fwarp_splat_f32(const float* img, const float* flo,
-                                     float* out, float* norm, int B, int C,
-                                     int H, int W, void* stream) {
+                                     float* out, float* norm,
+                                     const int* flag, int* served, int B,
+                                     int C, int H, int W, void* stream) {
   const int64_t hw = (int64_t)H * W;
   if (B <= 0 || hw <= 0) return (int)cudaSuccess;
   if (B > 65535) return (int)cudaErrorInvalidConfiguration;
   const dim3 grid((unsigned)((hw + kThreads - 1) / kThreads), (unsigned)B);
   fwarp_splat_kernel<<<grid, kThreads, 0, (cudaStream_t)stream>>>(
-      img, flo, out, norm, C, H, W);
+      img, flo, out, norm, flag, served, C, H, W);
   return (int)cudaGetLastError();
 }

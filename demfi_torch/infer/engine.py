@@ -9,6 +9,12 @@ Departures from the reference inference driver, kept from the JAX engine:
    call (an N*(M-1) synthesize batch).
 3. **Tiling.** For frames too large for device memory, the reference's
    reflect-pad + halo + trim + stitch semantics are kept exactly.
+4. **Dispatch / fetch.** ``dispatch_windows`` enqueues one batch of
+   windows on a CUDA stream of the engine (host-to-device copy, forward,
+   device-to-host copies into pinned buffers) and returns a handle;
+   ``fetch_windows`` waits for it. A caller that dispatches batch N+1
+   before it fetches batch N keeps the device busy while it works on
+   batch N's results on the host.
 
 The public surface keeps the JAX engine's layout: frames come in as numpy
 [N, 4, H, W, 3] (BGR in [-1, 1], order B0, B1, B-1, B2) and
@@ -124,6 +130,19 @@ def _trim(img: np.ndarray, pb: int, h: int, w: int, ph: int, sh: int,
     return img
 
 
+@dataclasses.dataclass
+class _Pending:
+    """One dispatched device batch: the selected fields as NHWC host
+    tensors (pinned on the card), the event recorded after the last copy
+    (None on the CPU, where the work is already done), the events that
+    bracket the batch on the engine's stream."""
+    host: dict
+    n: int
+    m: int
+    done: Optional["torch.cuda.Event"] = None
+    start: Optional["torch.cuda.Event"] = None
+
+
 def _concat_results(parts: Sequence[WindowResult]) -> WindowResult:
     return WindowResult(**{k: np.concatenate([getattr(p, k) for p in parts])
                            for k in _FIELDS})
@@ -157,18 +176,28 @@ class InferenceEngine:
         self.num_update = num_update
         self.t_chunk = t_chunk
         self.fetch = fetch
+        self._stream = (torch.cuda.Stream(self.device)
+                        if self.device.type == "cuda" else None)
+        # windows that went through dispatch_windows, and the seconds
+        # between the CUDA events that bracket each dispatched batch on
+        # the engine's stream (stays 0 on the CPU). The span holds the
+        # gaps in which the stream waits for the host's next launch, so
+        # it bounds the device's busy time from above.
+        self.dispatched_windows = 0
+        self.dispatched_stream_seconds = 0.0
 
     # -------------------------------------------------------------- core
     @torch.inference_mode()
-    def _forward(self, frames: np.ndarray, ts: np.ndarray) -> dict:
-        """frames [N,4,H,W,3], ts [N,M] -> dict of NHWC numpy fields with
-        batch N*M."""
+    def _forward(self, frames: torch.Tensor, ts: torch.Tensor) -> dict:
+        """frames [N,4,H,W,3], ts [N,M] (host tensors; pinned ones are
+        copied without the host waiting for the stream) -> dict of NHWC
+        device tensors with batch N*M: the fields that ``fetch``
+        selects."""
         n, m = ts.shape
         model = self.model
-        x = torch.from_numpy(np.ascontiguousarray(frames, np.float32)).to(
-            self.device).permute(0, 1, 4, 2, 3).contiguous()
-        t = torch.from_numpy(np.ascontiguousarray(ts, np.float32)).to(
-            self.device).reshape(n * m, 1)
+        x = frames.to(self.device, non_blocking=True).permute(
+            0, 1, 4, 2, 3).contiguous()
+        t = ts.to(self.device, non_blocking=True).reshape(n * m, 1)
         ctx = model.extract(x).repeat(m)
         out = model.synthesize(ctx, t, self.num_update)
         last = out.s0_final.shape[0] > 0
@@ -193,15 +222,13 @@ class InferenceEngine:
                     fgac_src_01=s01[0], fgac_ref_01=s01[1],
                     fgac_warp_01=s01[2], fgac_fcw_01=s01[3],
                     flow_01=vflows[0], flow_10=vflows[1])
-        return {k: nchw_to_nhwc(v).cpu().numpy()
-                for k, v in sel.items()}
+        return {k: nchw_to_nhwc(v) for k, v in sel.items()}
 
-    def _run(self, frames: np.ndarray, ts: np.ndarray) -> List[WindowResult]:
-        """frames [N,4,H,W,3], ts [N,M] -> per-window results."""
-        n, m = ts.shape
-        out = self._forward(frames, ts)
-        # fields not fetched (fetch="images", or a model built without
-        # viz_internals) zero-fill host-side
+    @staticmethod
+    def _results(out: dict, n: int, m: int) -> List[WindowResult]:
+        """NHWC numpy fields with batch n*m -> per-window results.
+        Fields not fetched (fetch="images", or a model built without
+        viz_internals) zero-fill host-side."""
         shp = out["st_prime"].shape[:-1]
         for k in _FIELDS:
             if k not in out:
@@ -210,11 +237,70 @@ class InferenceEngine:
                                 for k in _FIELDS})
                 for i in range(n)]
 
+    @staticmethod
+    def _host_inputs(frames: np.ndarray, ts: np.ndarray
+                     ) -> Tuple[torch.Tensor, torch.Tensor]:
+        return (torch.from_numpy(np.ascontiguousarray(frames, np.float32)),
+                torch.from_numpy(np.ascontiguousarray(ts, np.float32)))
+
+    def _run(self, frames: np.ndarray, ts: np.ndarray) -> List[WindowResult]:
+        """frames [N,4,H,W,3], ts [N,M] -> per-window results."""
+        n, m = ts.shape
+        out = self._forward(*self._host_inputs(frames, ts))
+        return self._results({k: v.cpu().numpy() for k, v in out.items()},
+                             n, m)
+
+    def _dispatch(self, frames: np.ndarray, ts: np.ndarray) -> _Pending:
+        """Enqueue one device batch on the engine's stream: the input
+        copies from pinned buffers (a copy from pageable memory would
+        make the host wait for the stream, and with it for the batch
+        before), the forward, and the copies of the selected fields into
+        pinned host buffers, all asynchronous, then an event. The stream
+        is entered here, not by the caller:
+        ``torch.cuda.current_stream`` is per thread, and the evaluation
+        loop dispatches from a worker thread.
+
+        The pinned buffers are allocated per batch and go back to
+        PyTorch's pinned-memory cache when the results built on them are
+        dropped (in "images" mode 6 fields of 3 channels; in "full" mode
+        every field). On the CPU the forward runs here and ``_fetch``
+        hands it back."""
+        n, m = ts.shape
+        frames_t, ts_t = self._host_inputs(frames, ts)
+        if self._stream is None:
+            return _Pending(self._forward(frames_t, ts_t), n, m)
+        self._stream.wait_stream(torch.cuda.current_stream(self.device))
+        with torch.cuda.stream(self._stream):
+            start = torch.cuda.Event(enable_timing=True)
+            done = torch.cuda.Event(enable_timing=True)
+            start.record()
+            host = {}
+            for k, v in self._forward(frames_t.pin_memory(),
+                                      ts_t.pin_memory()).items():
+                host[k] = torch.empty(v.shape, dtype=v.dtype,
+                                      pin_memory=True)
+                host[k].copy_(v, non_blocking=True)
+            done.record()
+        return _Pending(host, n, m, done, start)
+
+    def _fetch(self, pending: _Pending) -> List[WindowResult]:
+        """Wait for a dispatched batch and build its results."""
+        if pending.done is not None:
+            pending.done.synchronize()
+            self.dispatched_stream_seconds += \
+                pending.start.elapsed_time(pending.done) / 1e3
+        return self._results({k: v.numpy() for k, v in pending.host.items()},
+                             pending.n, pending.m)
+
     def _pixel_instant_budget(self) -> Optional[int]:
         """Pixel-instants one device batch may hold; None = no cap."""
         if self.device.type != "cuda":
             return None
+        # free on the device, plus what PyTorch's allocator holds unused
+        # from earlier windows
         free, _ = torch.cuda.mem_get_info(self.device)
+        free += (torch.cuda.memory_reserved(self.device)
+                 - torch.cuda.memory_allocated(self.device))
         return int(free * _MEMORY_SHARE / BYTES_PER_PIXEL_INSTANT)
 
     def _effective_t_chunk(self, h, w, m, test_patch=(1, 1), n_windows=1):
@@ -258,6 +344,40 @@ class InferenceEngine:
             return [_crop(_concat_results([p[wi] for p in parts]),
                           ori_h, ori_w) for wi in range(n)]
         return [_crop(r, ori_h, ori_w) for r in self._run(frames, ts)]
+
+    def dispatch_windows(self, frames: np.ndarray, ts: np.ndarray,
+                         patch_boundary: int = 32
+                         ) -> Optional[Tuple[List[_Pending], int, int]]:
+        """Asynchronous half of ``forward_windows``: enqueue the device
+        work and return a handle for :meth:`fetch_windows`, or ``None``
+        when this call cannot be pipelined (even one instant of the
+        batch exceeds the memory budget, so the windows must go through
+        ``forward_window``'s per-tile host logic); the caller then uses
+        ``forward_window`` or ``forward_windows`` directly."""
+        ts = np.asarray(ts, np.float32)
+        n, m = ts.shape
+        frames, ori_h, ori_w = _pad_reflect_to_multiple(
+            frames, max(patch_boundary, 1))
+        chunk = self._effective_t_chunk(frames.shape[2], frames.shape[3],
+                                        m, n_windows=n)
+        if chunk == 0:
+            return None
+        step = chunk if chunk and m > chunk else m
+        # t-chunked: every chunk is enqueued now and runs in stream order
+        pendings = [self._dispatch(frames, ts[:, i:i + step])
+                    for i in range(0, m, step)]
+        self.dispatched_windows += n
+        return pendings, ori_h, ori_w
+
+    def fetch_windows(self, handle) -> List[WindowResult]:
+        """Blocking half of ``forward_windows`` for a
+        :meth:`dispatch_windows` handle: the same results, bit for bit."""
+        pendings, ori_h, ori_w = handle
+        parts = [self._fetch(p) for p in pendings]
+        if len(parts) == 1:
+            return [_crop(r, ori_h, ori_w) for r in parts[0]]
+        return [_crop(_concat_results([p[wi] for p in parts]), ori_h, ori_w)
+                for wi in range(len(parts[0]))]
 
     def forward_window(self, frames: np.ndarray, ts: Sequence[float],
                        test_patch: Tuple[int, int] = (1, 1),

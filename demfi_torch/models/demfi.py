@@ -393,9 +393,12 @@ class DeMFINet(nn.Module):
                  num_res_facfb: int = 5, num_res_dec: int = 5,
                  shared_fgac: bool = True, fgac_rr: int = 0,
                  fgac_sr: int = 0, use_stage2: bool = True,
-                 viz_internals: bool = False, img_ch: int = 3):
+                 viz_internals: bool = False, img_ch: int = 3,
+                 fwarp_shift_d: int = 0):
         super().__init__()
         self.nf = nf
+        # window of CFR's deterministic forward warp (0: atomic splat)
+        self.fwarp_shift_d = fwarp_shift_d
         self.use_stage2 = use_stage2
         self.viz_internals = viz_internals
         self.FF_RDB_Module = FFRDB(nf, scale_factor, img_ch=img_ch)
@@ -442,7 +445,8 @@ class DeMFINet(nn.Module):
         b0 = ctx.frames[:, 0:3]
         b1 = ctx.frames[:, 3:6]
 
-        flow_t0, flow_t1 = cfr_flow_t_align(ctx.flow_01, ctx.flow_10, t)
+        flow_t0, flow_t1 = cfr_flow_t_align(ctx.flow_01, ctx.flow_10, t,
+                                            self.fwarp_shift_d)
         occ_0 = torch.sigmoid(ctx.occ_0_logit.float())
         ft = _t_blend(*bwarp_pair(ctx.f0, ctx.f1, flow_t0, flow_t1), occ_0, t)
 
@@ -564,7 +568,8 @@ def make_model(cfg: DeMFIConfig, device=None) -> DeMFINet:
         num_res_facfb=cfg.num_ResB_FACFB, num_res_dec=cfg.num_ResB_Dec,
         shared_fgac=cfg.shared_FGAC_flag, fgac_rr=cfg.fgac_rr,
         fgac_sr=cfg.fgac_sr, use_stage2=max(cfg.N_trn, cfg.N_tst) > 0,
-        viz_internals=cfg.visualization_flag, img_ch=cfg.img_ch)
+        viz_internals=cfg.visualization_flag, img_ch=cfg.img_ch,
+        fwarp_shift_d=cfg.fwarp_shift_d)
     gen = torch.Generator().manual_seed(cfg.seed)
     init_weights(model, gen)
     return model.to(dev).eval()

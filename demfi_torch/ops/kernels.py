@@ -1,6 +1,6 @@
 """Hand-written CUDA kernels for Hopper (sm_90a), their build and wrappers.
 
-Two kernels carry the warp ops of the main path:
+Three kernels carry the warp ops:
 
   ``bilinear_gather`` (csrc/bilinear_gather.cu) replaces the TPU kernel
       ``_gather_kernel`` / ``bilinear_gather_tpu``
@@ -9,13 +9,28 @@ Two kernels carry the warp ops of the main path:
       ``bilinear_sample_abs`` (absolute mode).
   ``fwarp_splat`` (csrc/fwarp_splat.cu) replaces ``_fwarp_kernel`` /
       ``fwarp_tpu`` (pallas_kernels.py:273, :343): the Gaussian forward
-      splat behind CFR.
+      splat behind CFR: float32 atomics, exact for any motion, bits
+      that vary from run to run.
+  ``fwarp_shift`` (csrc/fwarp_shift.cu) replaces ``_fwarp_shift_kernel_v2``
+      and ``_fwarp_shift_kernel`` / ``fwarp_shift_tpu``
+      (pallas_kernels.py:479, :421, :551): the same forward warp as an
+      atomic-free stencil sum over a (2D+2)^2 window, the same bits every
+      run, exact where max|flo| <= D - 1.
 
-Both are bound by device-memory bytes (a few flops per byte moved); each
-source file says what its design does about it. The TPU kernels' banded
-one-hot matmuls, slab sweep and +-vr/+-127 motion window were Mosaic
-workarounds and are not carried over: these kernels are exact for any
-motion and need no runtime guard.
+All three functions are bound by device-memory bytes (a few flops per
+byte moved); the stencil pays its window's tap tests on top of that. Each
+source file says what its design does about it. The TPU kernels' banded one-hot
+matmuls, slab sweeps and +-vr/+-127 motion window were Mosaic
+workarounds and are not carried over: the gather and the splat are exact
+for any motion and need no runtime guard.
+
+:func:`fwarp_guarded` chooses between the two forward warps without a
+copy to the host: the stencil's launch reduces ``any(|flo| > d - 1)`` to
+one device flag and either does the work or clears the outputs, and the
+splat, given the same flag, does the work or returns at once. Each adds
+1 to a device counter when it does the work (:func:`fwarp_served`),
+since under the guard a launch does not say which kernel served the
+call.
 
 Build: ``nvcc -gencode arch=compute_90a,code=sm_90a -O3 -shared`` of each
 source into its own shared library with a plain C interface (one nvcc
@@ -48,12 +63,15 @@ _PKG = Path(__file__).resolve().parent.parent
 CSRC = _PKG / "csrc"
 BUILD_ROOT = _PKG / "_build"
 SOURCES = {"bilinear_gather": "bilinear_gather.cu",
-           "fwarp_splat": "fwarp_splat.cu"}
+           "fwarp_splat": "fwarp_splat.cu",
+           "fwarp_shift": "fwarp_shift.cu"}
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC"]
 
 _libs: Dict[str, ctypes.CDLL] = {}
 _lock = threading.Lock()
+# per device: int32 [2], the calls served by (fwarp_shift, fwarp_splat)
+_served: Dict[torch.device, torch.Tensor] = {}
 
 
 def _nvcc() -> str:
@@ -109,10 +127,14 @@ def _bind(name: str, lib: ctypes.CDLL) -> ctypes.CDLL:
         fn = lib.demfi_bilinear_gather_f32
         # img, coords, out, ones, B, C, H, W, Hq, Wq, relative, stream
         fn.argtypes = [vp, vp, vp, vp, i, i, i, i, i, i, i, vp]
-    else:
+    elif name == "fwarp_splat":
         fn = lib.demfi_fwarp_splat_f32
-        # img, flo, out, norm, B, C, H, W, stream
-        fn.argtypes = [vp, vp, vp, vp, i, i, i, i, vp]
+        # img, flo, out, norm, flag, served, B, C, H, W, stream
+        fn.argtypes = [vp, vp, vp, vp, vp, vp, i, i, i, i, vp]
+    else:
+        fn = lib.demfi_fwarp_shift_f32
+        # img, flo, out, norm, flag, served, B, C, H, W, D, stream
+        fn.argtypes = [vp, vp, vp, vp, vp, vp, i, i, i, i, i, vp]
     fn.restype = i
     return lib
 
@@ -170,31 +192,113 @@ def bilinear_gather(img: torch.Tensor, coords: torch.Tensor, relative: bool
 bilinear_gather.launches = 0
 
 
+def _served_counter(device: torch.device) -> torch.Tensor:
+    device = torch.device(device.type, device.index
+                          if device.index is not None
+                          else torch.cuda.current_device())
+    with _lock:
+        if device not in _served:
+            _served[device] = torch.zeros(2, dtype=torch.int32, device=device)
+        return _served[device]
+
+
+def _check_fwarp(name: str, img: torch.Tensor, flo: torch.Tensor) -> None:
+    _check(name, img, flo)
+    b, _, h, w = img.shape
+    if tuple(flo.shape) != (b, 2, h, w):
+        raise ValueError(f"{name}: flo {tuple(flo.shape)} for img "
+                         f"{tuple(img.shape)}")
+
+
+def _launch_splat(img, flo, out, norm, flag) -> None:
+    b, c, h, w = img.shape
+    rc = build()["fwarp_splat"].demfi_fwarp_splat_f32(
+        img.data_ptr(), flo.data_ptr(), out.data_ptr(), norm.data_ptr(),
+        flag.data_ptr() if flag is not None else None,
+        _served_counter(img.device).data_ptr() + 4,
+        b, c, h, w, torch.cuda.current_stream(img.device).cuda_stream)
+    _raise_on("fwarp_splat", rc)
+    fwarp_splat.launches += 1
+
+
+def _launch_shift(img, flo, d, out, norm, flag) -> None:
+    b, c, h, w = img.shape
+    rc = build()["fwarp_shift"].demfi_fwarp_shift_f32(
+        img.data_ptr(), flo.data_ptr(), out.data_ptr(), norm.data_ptr(),
+        flag.data_ptr() if flag is not None else None,
+        _served_counter(img.device).data_ptr(),
+        b, c, h, w, int(d), torch.cuda.current_stream(img.device).cuda_stream)
+    _raise_on("fwarp_shift", rc)
+    fwarp_shift.launches += 1
+
+
+def _fwarp_outputs(img: torch.Tensor, alloc
+                   ) -> Tuple[torch.Tensor, torch.Tensor]:
+    b, c, h, w = img.shape
+    return (alloc((b, c, h, w), dtype=torch.float32, device=img.device),
+            alloc((b, 1, h, w), dtype=torch.float32, device=img.device))
+
+
 def fwarp_splat(img: torch.Tensor, flo: torch.Tensor
                 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Gaussian forward splat of img [B,C,H,W] by flo [B,2,H,W].
     Returns (warped [B,C,H,W], weight norm [B,1,H,W])."""
     if img.device.type == "cpu" and flo.device.type == "cpu":
         return _warp.fwarp_splat_plain(img, flo)
-    _check("fwarp_splat", img, flo)
-    b, c, h, w = img.shape
-    if tuple(flo.shape) != (b, 2, h, w):
-        raise ValueError(f"fwarp_splat: flo {tuple(flo.shape)} for img "
-                         f"{tuple(img.shape)}")
-    lib = build()["fwarp_splat"]
-    out = torch.zeros((b, c, h, w), dtype=torch.float32, device=img.device)
-    norm = torch.zeros((b, 1, h, w), dtype=torch.float32, device=img.device)
-    rc = lib.demfi_fwarp_splat_f32(
-        img.data_ptr(), flo.data_ptr(), out.data_ptr(), norm.data_ptr(),
-        b, c, h, w, torch.cuda.current_stream(img.device).cuda_stream)
-    _raise_on("fwarp_splat", rc)
-    fwarp_splat.launches += 1
+    _check_fwarp("fwarp_splat", img, flo)
+    out, norm = _fwarp_outputs(img, torch.zeros)
+    _launch_splat(img, flo, out, norm, None)
     return out, norm
 
 
 fwarp_splat.launches = 0
 
-WRAPPERS = (bilinear_gather, fwarp_splat)
+
+def fwarp_shift(img: torch.Tensor, flo: torch.Tensor, d: int
+                ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Deterministic forward warp of img [B,C,H,W] by flo [B,2,H,W]: the
+    stencil sum over the (2d+2)^2 window, equal to the splat where
+    max|flo| <= d - 1; splats beyond the window are dropped.
+    Returns (warped [B,C,H,W], weight norm [B,1,H,W])."""
+    if d < 1:
+        raise ValueError(f"fwarp_shift: window d must be >= 1, got {d}")
+    if img.device.type == "cpu" and flo.device.type == "cpu":
+        return _warp.fwarp_shift_plain(img, flo, d)
+    _check_fwarp("fwarp_shift", img, flo)
+    out, norm = _fwarp_outputs(img, torch.empty)
+    _launch_shift(img, flo, d, out, norm, None)
+    return out, norm
+
+
+fwarp_shift.launches = 0
+
+
+def fwarp_guarded(img: torch.Tensor, flo: torch.Tensor, d: int
+                  ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Forward warp by the stencil kernel where no |flo| exceeds d - 1,
+    by the atomic splat otherwise; both exact, only the first with the
+    same bits every run. Returns (warped, weight norm).
+
+    On the card both kernels are launched, on one device flag that the
+    stencil's launch computes from flo: the stencil does the work or
+    clears the outputs, the splat does the work or returns at once.
+    Nothing is copied to the host. On the CPU the flag is read and the
+    one plain version runs."""
+    if d < 1:
+        raise ValueError(f"fwarp_guarded: window d must be >= 1, got {d}")
+    if img.device.type == "cpu" and flo.device.type == "cpu":
+        if bool((flo.abs() > float(d - 1)).any()):
+            return _warp.fwarp_splat_plain(img, flo)
+        return _warp.fwarp_shift_plain(img, flo, d)
+    _check_fwarp("fwarp_guarded", img, flo)
+    out, norm = _fwarp_outputs(img, torch.empty)
+    flag = torch.empty(1, dtype=torch.int32, device=img.device)
+    _launch_shift(img, flo, d, out, norm, flag)
+    _launch_splat(img, flo, out, norm, flag)
+    return out, norm
+
+
+WRAPPERS = (bilinear_gather, fwarp_splat, fwarp_shift)
 
 
 def reset_launch_counts() -> None:
@@ -204,3 +308,15 @@ def reset_launch_counts() -> None:
 
 def launch_counts() -> Dict[str, int]:
     return {fn.__name__: fn.launches for fn in WRAPPERS}
+
+
+def fwarp_served(device=None, reset: bool = False) -> Dict[str, int]:
+    """Forward-warp calls that each kernel served (did the work of) on
+    ``device`` since the last reset. Waits for the device."""
+    counter = _served_counter(torch.device(device or "cuda"))
+    torch.cuda.synchronize(counter.device)
+    shift, splat = (int(v) for v in counter.cpu())
+    if reset:
+        counter.zero_()
+        torch.cuda.synchronize(counter.device)
+    return {"fwarp_shift": shift, "fwarp_splat": splat}

@@ -8,13 +8,16 @@
     at *absolute* pixel coordinates (raw flow values, no base grid); the
     query grid may differ from the image grid;
   - :func:`fwarp`  forward warp: Gaussian-weighted splat of each source
-    pixel onto the 4 integer corners around ``p + flo(p)``;
+    pixel onto the 4 integer corners around ``p + flo(p)``, by the atomic
+    splat kernel or, for ``shift_d > 0`` and motion inside the window, by
+    the deterministic stencil kernel;
   - :func:`cfr_flow_t_align`  Complementary Flow Reversal;
   - :func:`fgac_correlate`  FGAC aggregation, point-wise at rr = 0 and the
     reference's window form (with its quirks) at rr > 0.
 
-``bilinear_gather_plain`` and ``fwarp_splat_plain`` are the plain
-versions of the two CUDA kernels (``demfi_torch/ops/kernels.py``): the
+``bilinear_gather_plain``, ``fwarp_splat_plain`` and
+``fwarp_shift_plain`` are the plain versions of the three CUDA kernels
+(``demfi_torch/ops/kernels.py``): the
 kernel wrappers take them for CPU tensors, the tests hold them against
 the JAX package, and ``chip_smoke.py`` holds each kernel against them on
 the card. The coordinates are computed as ``grid + flow`` in float32, as
@@ -135,6 +138,54 @@ def fwarp_splat_plain(img: torch.Tensor, flo: torch.Tensor
     return acc[:, :c], acc[:, c:]
 
 
+def fwarp_shift_plain(img: torch.Tensor, flo: torch.Tensor, d: int
+                      ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Plain version of the ``fwarp_shift`` kernel: the forward warp as a
+    stencil sum, with no scatter.
+
+    For displacements with floor(flo) in [-d, d] every source pixel's
+    4-corner Gaussian splat lands within a (2d+2)^2 neighbourhood, and
+    the Gaussian weights are separable, so
+        out = sum over dy, dx in [-d, d+1] of
+              shift(vals * (MY[dy] * MX[dx]), dy, dx),
+        MY[dy] = [r1 == dy] * wy0 + [r1 == dy-1] * wy1  (MX likewise),
+    with vals = (img, 1). The terms are added in the kernel's order (dy
+    outer, dx inner) in float32, so on one device the two agree bit for
+    bit. Equal to :func:`fwarp_splat_plain` to rounding wherever
+    max|flo| <= d - 1; splats beyond the window, and outside the image,
+    are dropped. Returns (warped [B,C,H,W], weight norm [B,1,H,W])."""
+    b, c, h, w = img.shape
+    dc = flo[:, 0:1].float()
+    dr = flo[:, 1:2].float()
+    c1 = torch.floor(dc)
+    r1 = torch.floor(dr)
+    fc = dc - c1
+    fr = dr - r1
+    fc1 = fc - 1.0
+    fr1 = fr - 1.0
+    wy = (torch.exp(-(fr * fr)), torch.exp(-(fr1 * fr1)))
+    wx = (torch.exp(-(fc * fc)), torch.exp(-(fc1 * fc1)))
+    zero = torch.zeros_like(dc)
+    span = range(-d, d + 2)
+    my = {dy: torch.where(r1 == dy, wy[0], zero)
+          + torch.where(r1 == dy - 1, wy[1], zero) for dy in span}
+    mx = {dx: torch.where(c1 == dx, wx[0], zero)
+          + torch.where(c1 == dx - 1, wx[1], zero) for dx in span}
+
+    vals = torch.cat([img.float(), torch.ones_like(dc)], dim=1)
+    # a canvas with a margin of d + 1 makes every shift a slice; the
+    # margin takes the splats that leave the image
+    s = d + 1
+    acc = vals.new_zeros((b, c + 1, h + 2 * s, w + 2 * s))
+    for dy in span:
+        for dx in span:
+            acc[:, :, s + dy:s + dy + h, s + dx:s + dx + w] += \
+                vals * (my[dy] * mx[dx])
+    out = acc[:, :, s:s + h, s:s + w]
+    return (out[:, :c].to(img.dtype).contiguous(),
+            out[:, c:].to(img.dtype).contiguous())
+
+
 # ---------------------------------------------------------------------------
 # Public ops: each goes through a kernel wrapper (plain version on the CPU,
 # the CUDA kernel on the card).
@@ -172,23 +223,35 @@ def bilinear_sample_abs(img: torch.Tensor, coords: torch.Tensor
     return out
 
 
-def fwarp(img: torch.Tensor, flo: torch.Tensor
+def fwarp(img: torch.Tensor, flo: torch.Tensor, shift_d: int = 0
           ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Forward warp (Gaussian splat). Returns (warped, weight norm); the
-    caller normalises."""
-    return kernels.fwarp_splat(img.contiguous(), flo.contiguous())
+    caller normalises.
+
+    shift_d == 0: the atomic splat kernel. shift_d > 0: the
+    deterministic stencil kernel if no |flo| exceeds shift_d - 1, the
+    atomic splat otherwise; both are exact, only the first gives the
+    same bits every run (``kernels.fwarp_guarded``; which kernel served
+    a call is counted on the device, ``kernels.fwarp_served``)."""
+    img = img.contiguous()
+    flo = flo.contiguous()
+    if shift_d <= 0:
+        return kernels.fwarp_splat(img, flo)
+    return kernels.fwarp_guarded(img, flo, shift_d)
 
 
 def cfr_flow_t_align(flow_01: torch.Tensor, flow_10: torch.Tensor,
-                     t: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+                     t: torch.Tensor, shift_d: int = 0
+                     ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Complementary Flow Reversal (from XVFI). flow_01/flow_10
-    [B,2,H,W]; t broadcastable to [B,1,1,1]. Returns (flow_t0, flow_t1).
+    [B,2,H,W]; t broadcastable to [B,1,1,1]; shift_d as in
+    :func:`fwarp`. Returns (flow_t0, flow_t1).
 
     The mask reads the detached norm (> 0); where it is 0 the flows pass
     through unnormalised (denominator norm + (1 - mask))."""
     t = t.reshape(-1, 1, 1, 1).to(flow_01.dtype)
-    w01, n0 = fwarp(flow_01, t * flow_01)
-    w10, n1 = fwarp(flow_10, (1.0 - t) * flow_10)
+    w01, n0 = fwarp(flow_01, t * flow_01, shift_d)
+    w10, n1 = fwarp(flow_10, (1.0 - t) * flow_10, shift_d)
 
     flow_t0 = -(1.0 - t) * t * w01 + t * t * w10
     flow_t1 = (1.0 - t) * (1.0 - t) * w01 - t * (1.0 - t) * w10

@@ -11,8 +11,8 @@ from demfi_torch.models.demfi import DeMFINet
 def calibrate_flow_head(model: DeMFINet, frames: torch.Tensor,
                         target: float = 24.0) -> float:
     """Scale the flow channels of FF_RDB's output head (``UPNet.2``) in
-    place so that the backbone's flows on ``frames`` [B,4,3,H,W] peak at
-    ``target`` pixels.
+    place so that the backbone's flows on ``frames`` [B,4,3,H,W] (every
+    window of the batch, one at a time) peak at ``target`` pixels.
 
     At random init the backbone emits flows of about 76 px, far beyond
     the motion of real x8 windows; a synthetic benchmark would then time
@@ -21,8 +21,11 @@ def calibrate_flow_head(model: DeMFINet, frames: torch.Tensor,
 
     Returns the peak |flow| before scaling. No-op when it is already at
     or below ``target`` (or not finite)."""
-    ctx = model.extract(frames[:1])
-    m = float(max(ctx.flow_01.abs().max(), ctx.flow_10.abs().max()))
+    m = 0.0
+    for i in range(frames.shape[0]):
+        ctx = model.extract(frames[i:i + 1])
+        m = max(m, float(ctx.flow_01.abs().max()),
+                float(ctx.flow_10.abs().max()))
     if m <= target or not np.isfinite(m):
         return m
     nf2 = model.nf * 2

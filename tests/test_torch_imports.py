@@ -29,7 +29,8 @@ def _imported_roots(path: Path):
 
 def test_no_jax_imports_in_port():
     files = _port_files()
-    assert len(files) > 10
+    assert len(files) > 20
+    assert ROOT / "demfi_torch" / "main.py" in files
     bad = [(str(f.relative_to(ROOT)), m) for f in files
            for m in _imported_roots(f) if m in FORBIDDEN]
     assert not bad, bad
@@ -52,6 +53,36 @@ def test_imports_with_jax_absent():
     res = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env,
                          capture_output=True, text=True, timeout=120)
     assert res.returncode == 0 and res.stdout.strip() == "ok", res.stderr
+
+
+def test_cli_imports_and_png_route_without_cv2(tmp_path):
+    """``demfi_torch.main`` and all it reaches import with jax, flax and
+    cv2 blocked, and PNG files then go through the numpy route."""
+    code = ("import sys\n"
+            "for m in %r: sys.modules[m] = None\n"
+            "import numpy as np\n"
+            "import demfi_torch.main, demfi_torch.infer.driver\n"
+            "import demfi_torch.utils.viz, demfi_torch.utils.meters\n"
+            "from demfi_torch.data import imageio\n"
+            "from demfi_torch import metrics\n"
+            "img = np.arange(24 * 32 * 3, dtype=np.uint8).reshape(24, 32, 3)\n"
+            "imageio.imwrite(sys.argv[1], img)\n"
+            "assert (imageio.imread(sys.argv[1]) == img).all()\n"
+            "assert metrics.ssim(img, img) == 1.0\n"
+            "try:\n"
+            "    metrics.tof_pair(img, img, img, img)\n"
+            "except RuntimeError as e:\n"
+            "    assert 'cv2' in str(e)\n"
+            "else:\n"
+            "    raise SystemExit('tof_pair ran without cv2')\n"
+            "print('ok')\n" % (FORBIDDEN + ("cv2",),))
+    env = dict(os.environ, PYTHONPATH=str(ROOT))
+    png = tmp_path / "a.png"
+    res = subprocess.run([sys.executable, "-c", code, str(png)], cwd=ROOT,
+                         env=env, capture_output=True, text=True, timeout=120)
+    assert res.returncode == 0 and res.stdout.strip() == "ok", res.stderr
+    import cv2
+    assert cv2.imread(str(png)).shape == (24, 32, 3)
 
 
 def test_entry_points_need_cuda_unless_cpu_is_asked():
