@@ -4,6 +4,8 @@
     python3 chip_smoke.py            # needs one CUDA card
     python3 chip_smoke.py --profile  # adds a torch.profiler breakdown of
                                      # one window
+    python3 chip_smoke.py --kernels-of DIR   # phases 1-3 only, on the
+                                     # checkout of the port at DIR
 
 Phases:
   1. device: the card's name and power limit (nvidia-smi);
@@ -11,14 +13,25 @@ Phases:
   3. kernels: each kernel against its plain PyTorch version on the card,
      at the main path's shapes (352x640, x8: 7 instants), on inputs taken
      from DeMFI-Net_rb(5,3)'s own Stage I with the flow head calibrated
-     to about 24 px; CUDA-event times of the kernel, its plain version
-     and, for the gather, F.grid_sample as a yardstick. The stencil
-     forward warp runs at D = 8 (flows scaled into its window) and D = 32
-     (the 24 px flows), against its plain version and the plain splat,
-     twice for a bitwise comparison, and once beyond its window, where
-     the guard must hand the call to the atomic splat. The stencil's
-     bound is the function's (the splat's bytes and operations); its
-     window's tap tests are printed beside it, not counted into it;
+     to about 24 px. Per case two times: the device's (CUDA events
+     around one cold call that is queued behind a spin kernel, so the
+     host's enqueue is not in it; see DeviceTimer) and the host's
+     enqueue (host clock per call over many calls, no synchronise), of
+     the kernel, of its plain version (device only) and, for the gather,
+     of F.grid_sample as a yardstick. The gather runs as the main path
+     calls it (bwarp_pair on two separate halves: one launch, no
+     torch.cat, equal to the gather of the concatenation; FGAC's
+     absolute sample), with and without the in-image weight plane, and
+     on a 3Hx3W query grid; a case without the plane counts no plane
+     into its byte bound. The stencil forward warp runs at D = 8 (flows
+     scaled into its window) and D = 32 (the 24 px flows), against its
+     plain version (bitwise) and the plain splat, twice for a bitwise
+     comparison, with the share of source rows its range test skipped,
+     at the largest window it takes and one beyond (refused), and once
+     beyond its window, where the guard must hand the call to the atomic
+     splat. The stencil's bound is the function's (the splat's bytes and
+     operations); its window's taps are printed beside it, not counted
+     into it;
   4. main path: x8 DeMFI-Net_rb(5,3), full width, seeded random weights,
      through InferenceEngine.forward_windows on one 352x640 window
      (warm-up, then timed runs; the rate is all windows over all their
@@ -79,6 +92,7 @@ SPLAT_RTOL = 1e-5              # of the largest |value|: atomics reorder sums
 # stencil against its plain version: the same order and rounding, so 0 is
 # expected; 1e-6 of the largest |value| allows one ulp of expf
 SHIFT_RTOL = 1e-6
+ENQUEUE_CALLS = 100            # calls per host-clock enqueue measurement
 PATH_ATOL = PATH_RTOL = 1e-3   # card vs CPU, whole network in float32
 
 
@@ -96,21 +110,64 @@ def say(msg: str) -> None:
     print(msg, flush=True)
 
 
-def event_ms(torch, fn, n: int, flush) -> float:
-    """Mean CUDA-event time of fn over n runs, each after an L2 flush."""
+def enqueue_us(torch, fn, n: int) -> float:
+    """Host microseconds per call of fn, enqueue only: the host clock over
+    n back-to-back calls with no synchronise between them."""
     fn()
     torch.cuda.synchronize()
-    total = 0.0
+    t0 = time.perf_counter()
     for _ in range(n):
-        flush.zero_()
-        e0 = torch.cuda.Event(enable_timing=True)
-        e1 = torch.cuda.Event(enable_timing=True)
-        e0.record()
         fn()
+    dt = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    return dt / n * 1e6
+
+
+class DeviceTimer:
+    """Device time of one call, apart from the host's time to enqueue it.
+
+    Each timed call is preceded by an L2 flush (a 64 MB fill: the callers
+    on the main path find their inputs cold, written by far larger
+    layers) and by a spin kernel (``torch.cuda._sleep``) long enough to
+    cover the host's enqueue of the call. So the device reaches the first
+    event only after the host has queued the call and the second event:
+    the interval between the events holds the call's kernels and nothing
+    of the host. A run of n back-to-back calls between one pair of events
+    would also hide the host, but leaves inputs under 50 MB warm in L2;
+    the spin keeps every call cold. The same method times a kernel, its
+    plain version and the library call.
+    """
+
+    def __init__(self, torch):
+        self.torch = torch
+        self.flush = torch.empty(64 * 2 ** 20 // 4, dtype=torch.float32,
+                                 device="cuda")
+        cycles = 20_000_000
+        torch.cuda._sleep(cycles)
+        torch.cuda.synchronize()
+        e0, e1 = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+        e0.record()
+        torch.cuda._sleep(cycles)
         e1.record()
         e1.synchronize()
-        total += e0.elapsed_time(e1)
-    return total / n
+        self.cycles_per_us = cycles / (e0.elapsed_time(e1) * 1e3)
+
+    def ms(self, fn, n: int) -> float:
+        """Mean device milliseconds of fn over n cold calls."""
+        torch = self.torch
+        # the spin covers twice the host's enqueue of one call, and 50 us
+        spin = int((2 * enqueue_us(torch, fn, 1) + 50) * self.cycles_per_us)
+        pairs = []
+        for _ in range(n):
+            self.flush.zero_()
+            torch.cuda._sleep(spin)
+            e0, e1 = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+            e0.record()
+            fn()
+            e1.record()
+            pairs.append((e0, e1))
+        torch.cuda.synchronize()
+        return sum(a.elapsed_time(b) for a, b in pairs) / n
 
 
 def gather_image_pixels(torch, coords, relative: bool, h: int, w: int) -> int:
@@ -137,12 +194,20 @@ def gather_image_pixels(torch, coords, relative: bool, h: int, w: int) -> int:
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--profile", action="store_true")
+    ap.add_argument("--kernels-of", metavar="DIR", default="",
+                    help="run phases 1-3 on the checkout of the port at DIR "
+                         "and stop ('.' for this one; an earlier commit's, "
+                         "to time both in one run: what that checkout's "
+                         "kernels lack, the pair entry and the stencil's "
+                         "row count and largest window, is then not "
+                         "checked)")
     args = ap.parse_args()
 
     import torch
     if not torch.cuda.is_available():
         fail("no CUDA device: the port's smoke run needs one GPU")
-    sys.path.insert(0, str(Path(__file__).resolve().parent))
+    sys.path.insert(0, str(Path(args.kernels_of).resolve() if args.kernels_of
+                           else Path(__file__).resolve().parent))
     import torch.nn.functional as F
     from demfi_torch.config import config_rb
     from demfi_torch.infer import InferenceEngine, WindowResult
@@ -151,6 +216,8 @@ def main() -> int:
     from demfi_torch.ops import cfr_flow_t_align, kernels, warp
     from demfi_torch.utils.profiling import calibrate_flow_head
 
+    # False only for an earlier checkout under --kernels-of
+    has_pair_entry = hasattr(kernels, "bilinear_gather_pair")
     dev = torch.device("cuda")
     torch.set_grad_enabled(False)
     torch.backends.cudnn.allow_tf32 = False
@@ -193,84 +260,200 @@ def main() -> int:
     def rep(x, n):
         return x.expand(n, -1, -1, -1).contiguous()
 
+    timer = DeviceTimer(torch)
+    say(f"[3 kernels] times: device ms = CUDA events around one cold call "
+        f"(L2 flushed) queued behind a spin kernel that covers its "
+        f"enqueue ({timer.cycles_per_us:.0f} spin cycles per us); enqueue us "
+        f"= host clock per call over {ENQUEUE_CALLS} calls, no synchronise")
+
+    def timed(fn, plain, library, n_plain):
+        """Device ms and host enqueue us of a kernel call, its plain
+        version and its library call (or None)."""
+        out = dict(ms=timer.ms(fn, 10),
+                   enqueue_us=enqueue_us(torch, fn, ENQUEUE_CALLS),
+                   plain_ms=timer.ms(plain, n_plain),
+                   library_ms=None, library_enqueue_us=None)
+        if library is not None:
+            out["library_ms"] = timer.ms(library, 10)
+            out["library_enqueue_us"] = enqueue_us(torch, library,
+                                                   ENQUEUE_CALLS)
+        return out
+
+    def times_text(r, library_name):
+        lib = ("none (no single-call equivalent)" if r["library_ms"] is None
+               else f"{r['library_ms']:.4f} ms device, "
+                    f"{r['library_enqueue_us']:.1f} us enqueue ({library_name})")
+        return (f"kernel {r['ms']:.4f} ms device, {r['enqueue_us']:.1f} us "
+                f"enqueue; plain {r['plain_ms']:.4f} ms; library {lib}")
+
+    def grid_sample_of(img, coords, relative):
+        """F.grid_sample computing the same gather (the 0.999 mask of the
+        relative mode apart), on a grid made outside the timed call."""
+        h, w = img.shape[2:]
+        gx = coords[:, 0] + (torch.arange(w, device=dev)[None, None]
+                             if relative else 0)
+        gy = coords[:, 1] + (torch.arange(h, device=dev)[None, :, None]
+                             if relative else 0)
+        grid = torch.stack([gx * (2.0 / (w - 1)) - 1.0,
+                            gy * (2.0 / (h - 1)) - 1.0], dim=-1)
+        return lambda: F.grid_sample(img, grid, mode="bilinear",
+                                     padding_mode="zeros", align_corners=True)
+
+    def gather_bytes(img, coords, relative, ones_plane):
+        """What the call must move: the image pixels its taps reach, the
+        coordinates, the output and, where asked for, the ones plane."""
+        b, c, h, w = img.shape
+        hq, wq = coords.shape[2:]
+        return 4 * (gather_image_pixels(torch, coords, relative, h, w) * c
+                    + coords.numel() + b * c * hq * wq
+                    + (b * hq * wq if ones_plane else 0))
+
+    def count_cats(fn):
+        """fn(), and how often it called torch.cat."""
+        calls, cat = [0], torch.cat
+
+        def counting(*a, **k):
+            calls[0] += 1
+            return cat(*a, **k)
+        torch.cat = counting
+        try:
+            return fn(), calls[0]
+        finally:
+            torch.cat = cat
+
     b0 = fr_t[:, 0].contiguous()
     b1 = fr_t[:, 1].contiguous()
-    cases = [
-        # name, per-window count, kernel args
-        ("gather rel C=64 B=14", 2, "bilinear_gather",
-         (torch.cat([rep(ctx.f0, n_t), rep(ctx.f1, n_t)]),
-          torch.cat([ft0, ft1]).contiguous(), True)),
-        ("gather rel C=3 B=14", 3, "bilinear_gather",
-         (torch.cat([rep(b0, n_t), rep(b1, n_t)]),
-          torch.cat([ft0, ft1]).contiguous(), True)),
-        ("gather abs C=64 B=1", 2, "bilinear_gather",
-         (ctx.f0.contiguous(), ctx.flow_01.contiguous(), False)),
-        ("gather abs C=64 B=1 query 3Hx3W", 0, "bilinear_gather",
-         (ctx.f0.contiguous(),
-          warp.fgac_window_coords(ctx.flow_01, 1).contiguous(), False)),
-        ("splat C=2 B=7", 2, "fwarp_splat", (flow_01, (t * flow_01).contiguous())),
-    ]
-    flush = torch.empty(64 * 2 ** 20 // 4, dtype=torch.float32, device=dev)
+    flows_t = torch.cat([ft0, ft1]).contiguous()
     rows = []
-    for name, per_window, kname, kargs in cases:
-        wrapper = getattr(kernels, kname)
-        if kname == "bilinear_gather":
-            img, coords, relative = kargs
-            plain = warp.bilinear_gather_plain
-            b, c, h, w = img.shape
-            hq, wq = coords.shape[2:]
-            # the image pixels the taps reach, the coords, out and ones
-            nbytes = 4 * (gather_image_pixels(torch, coords, relative, h, w)
-                          * c + coords.numel() + b * c * hq * wq
-                          + (b * hq * wq if relative else 0))
-            flops = b * hq * wq * (8 * c + 24)
-            gx = coords[:, 0] + (torch.arange(w, device=dev)[None, None]
-                                 if relative else 0)
-            gy = coords[:, 1] + (torch.arange(h, device=dev)[None, :, None]
-                                 if relative else 0)
-            grid = torch.stack([gx * (2.0 / (w - 1)) - 1.0,
-                                gy * (2.0 / (h - 1)) - 1.0], dim=-1)
 
-            def library(img=img, grid=grid):
-                return F.grid_sample(img, grid, mode="bilinear",
-                                     padding_mode="zeros", align_corners=True)
-        else:
-            img, flo = kargs
-            plain = warp.fwarp_splat_plain
-            b, c, h, w = img.shape
-            nbytes = 4 * (img.numel() + flo.numel() + img.numel() + b * h * w)
-            flops = b * h * w * 4 * (2 * (c + 1) + 12)
-            library = None
-        got = wrapper(*kargs)
-        want = plain(*kargs)
+    def gather_row(name, per_window, relative, ones_plane, imgs, coords,
+                   fn, pairs, note=""):
+        """One gather case: fn() launches once; pairs() gives (kernel
+        result, plain result) tensors; imgs/coords are the call's halves."""
+        n0 = kernels.bilinear_gather.launches
+        got_want = pairs()
         torch.cuda.synchronize()
-        errs = [float((g - p).abs().max()) for g, p in zip(got, want)
-                if g is not None]
-        scale = max(float(p.abs().max()) for p in want if p is not None)
-        err = max(errs)
-        tol = GATHER_TOL if kname == "bilinear_gather" else \
-            SPLAT_RTOL * max(1.0, scale)
-        finite = all(bool(torch.isfinite(g).all()) for g in got
-                     if g is not None)
-        ms = event_ms(torch, lambda: wrapper(*kargs), 10, flush)
-        plain_ms = event_ms(torch, lambda: plain(*kargs), 3, flush)
-        lib_ms = (event_ms(torch, library, 10, flush) if library else None)
+        check(kernels.bilinear_gather.launches == n0 + 1,
+              f"{name}: {kernels.bilinear_gather.launches - n0} launches, "
+              f"expected 1")
+        err = max(float((g - p).abs().max()) for g, p in got_want)
+        finite = all(bool(torch.isfinite(g).all()) for g, _ in got_want)
+        nbytes = sum(gather_bytes(i, c, relative, ones_plane)
+                     for i, c in zip(imgs, coords))
+        flops = sum(c.shape[0] * c.shape[2] * c.shape[3]
+                    * (8 * i.shape[1] + 24) for i, c in zip(imgs, coords))
+        samplers = [grid_sample_of(i, c, relative)
+                    for i, c in zip(imgs, coords)]
+        r = timed(fn,
+                  lambda: [warp.bilinear_gather_plain(i, c, relative)
+                           for i, c in zip(imgs, coords)],
+                  lambda: [f() for f in samplers], 3)
         bound_b = nbytes / HBM_BYTES_PER_S * 1e3
         bound_o = flops / F32_FLOPS_PER_S * 1e3
-        row = dict(case=name, kernel=kname, per_window=per_window,
-                   max_abs_err=err, tol=tol, ms=ms, plain_ms=plain_ms,
-                   library_ms=lib_ms, bytes=nbytes,
-                   bound_ms=max(bound_b, bound_o),
-                   bound_by="bytes" if bound_b >= bound_o else "operations")
-        rows.append(row)
-        say(f"[3 kernels] {name}: max_abs_err {err:.3g} (tol {tol:.3g}) | "
-            f"kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, library "
-            f"{'none (no single-call equivalent)' if lib_ms is None else f'{lib_ms:.4f} ms (F.grid_sample)'}"
-            f" | bound {row['bound_ms']:.4f} ms by {row['bound_by']} "
-            f"({nbytes / 1e9:.4f} GB)")
+        r.update(case=name, kernel="bilinear_gather", per_window=per_window,
+                 max_abs_err=err, tol=GATHER_TOL, bytes=nbytes,
+                 bound_ms=max(bound_b, bound_o),
+                 bound_by="bytes" if bound_b >= bound_o else "operations")
+        rows.append(r)
+        lib_name = ("F.grid_sample" if len(imgs) == 1
+                    else f"{len(imgs)} F.grid_sample calls")
+        say(f"[3 kernels] {name}: max_abs_err {err:.3g} (tol {GATHER_TOL:.3g})"
+            f"{note} | {times_text(r, lib_name)} | bound "
+            f"{r['bound_ms']:.4f} ms by {r['bound_by']} ({nbytes / 1e9:.4f} "
+            f"GB; kernel at {r['ms'] / r['bound_ms']:.2f}x)")
         check(finite, f"{name}: non-finite kernel output")
-        check(err <= tol, f"{name}: kernel disagrees with its plain version "
-                          f"({err} > {tol})")
+        check(err <= GATHER_TOL, f"{name}: kernel disagrees with its plain "
+                                 f"version ({err} > {GATHER_TOL})")
+
+    def single(name, per_window, img, coords, relative):
+        def pairs():
+            got = kernels.bilinear_gather(img, coords, relative)
+            want = warp.bilinear_gather_plain(img, coords, relative)
+            return [(g, p) for g, p in zip(got, want) if g is not None]
+        gather_row(name, per_window, relative, relative, [img], [coords],
+                   lambda: kernels.bilinear_gather(img, coords, relative),
+                   pairs)
+
+    def no_ones(name, img, coords):
+        """bwarp: the relative gather without the in-image weight plane."""
+        def pairs():
+            return [(warp.bwarp(img, coords),
+                     warp.bilinear_gather_plain(img, coords, True)[0])]
+        gather_row(name, 0, True, False, [img], [coords],
+                   lambda: warp.bwarp(img, coords), pairs)
+
+    def pair(name, per_window, a, b, fa, fb):
+        """bwarp_pair on two separate halves: one launch, each half equal
+        to its plain version, both equal to the gather of the
+        concatenation, and no torch.cat on the way."""
+        cats = []
+
+        def pairs():
+            (ga, gb), n_cat = count_cats(lambda: warp.bwarp_pair(a, b, fa, fb))
+            cats.append(n_cat)
+            return [(ga, warp.bilinear_gather_plain(a, fa, True)[0]),
+                    (gb, warp.bilinear_gather_plain(b, fb, True)[0])]
+        gather_row(name, per_window, True, False, [a, b], [fa, fb],
+                   lambda: warp.bwarp_pair(a, b, fa, fb), pairs,
+                   note="; one launch")
+        ga, gb = warp.bwarp_pair(a, b, fa, fb)
+        whole = kernels.bilinear_gather(torch.cat([a, b]),
+                                        torch.cat([fa, fb]), True)[0]
+        same = torch.equal(torch.cat([ga, gb]), whole)
+        say(f"[3 kernels] {name}: torch.cat calls inside bwarp_pair "
+            f"{cats[0]}; bitwise equal to the gather of the concatenated "
+            f"halves: {same}")
+        check(same, f"{name}: differs from the gather of the concatenation")
+        if has_pair_entry:
+            check(cats[0] == 0, f"{name}: bwarp_pair concatenated its halves")
+
+    n_f0, n_f1 = rep(ctx.f0, n_t), rep(ctx.f1, n_t)
+    n_b0, n_b1 = rep(b0, n_t), rep(b1, n_t)
+    pair("gather pair rel C=64 2x7", 2, n_f0, n_f1, ft0, ft1)
+    pair("gather pair rel C=3 2x7", 3, n_b0, n_b1, ft0, ft1)
+    single("gather abs C=64 B=1", 2, ctx.f0.contiguous(),
+           ctx.flow_01.contiguous(), False)
+    single("gather abs C=64 B=1 query 3Hx3W", 0, ctx.f0.contiguous(),
+           warp.fgac_window_coords(ctx.flow_01, 1).contiguous(), False)
+    f01 = torch.cat([n_f0, n_f1])
+    del n_f0, n_f1
+    single("gather rel C=64 B=14", 0, f01, flows_t, True)
+    no_ones("gather rel C=64 B=14 no ones plane", f01, flows_t)
+    del f01
+    b01 = torch.cat([n_b0, n_b1])
+    single("gather rel C=3 B=14", 0, b01, flows_t, True)
+    no_ones("gather rel C=3 B=14 no ones plane", b01, flows_t)
+    del b01, n_b0, n_b1
+
+    # the atomic splat; C = 2 (CFR warps the flows)
+    img, flo = flow_01, (t * flow_01).contiguous()
+    got = kernels.fwarp_splat(img, flo)
+    want = warp.fwarp_splat_plain(img, flo)
+    torch.cuda.synchronize()
+    scale = max(float(p.abs().max()) for p in want)
+    err = max(float((g - p).abs().max()) for g, p in zip(got, want))
+    tol = SPLAT_RTOL * max(1.0, scale)
+    b, c = img.shape[:2]
+    nbytes = 4 * (img.numel() + flo.numel() + img.numel() + b * H * W)
+    flops = b * H * W * 4 * (2 * (c + 1) + 12)
+    r = timed(lambda: kernels.fwarp_splat(img, flo),
+              lambda: warp.fwarp_splat_plain(img, flo), None, 3)
+    bound_b = nbytes / HBM_BYTES_PER_S * 1e3
+    bound_o = flops / F32_FLOPS_PER_S * 1e3
+    r.update(case="splat C=2 B=7", kernel="fwarp_splat", per_window=2,
+             max_abs_err=err, tol=tol, bytes=nbytes,
+             bound_ms=max(bound_b, bound_o),
+             bound_by="bytes" if bound_b >= bound_o else "operations")
+    rows.append(r)
+    say(f"[3 kernels] splat C=2 B=7: max_abs_err {err:.3g} (tol {tol:.3g}) | "
+        f"{times_text(r, '')} | bound {r['bound_ms']:.4f} ms by "
+        f"{r['bound_by']} ({nbytes / 1e9:.4f} GB; kernel at "
+        f"{r['ms'] / r['bound_ms']:.2f}x)")
+    check(all(bool(torch.isfinite(g).all()) for g in got),
+          "splat: non-finite kernel output")
+    check(err <= tol, f"splat: kernel disagrees with its plain version "
+                      f"({err} > {tol})")
+
     # the stencil forward warp: D = 8 on the flows scaled into its
     # window, D = 32 on the 24 px flows; C = 2 (CFR warps the flows)
     def corners_in_image(flo):
@@ -310,31 +493,47 @@ def main() -> int:
         # of its window inside the image, is printed and not counted.
         flops = corners_in_image(flo) * (2 * (c + 1) + 12)
         window_ops = 6 * b * window_taps(H, d) * window_taps(W, d)
-        ms = event_ms(torch, lambda: kernels.fwarp_shift(img, flo, d), 10, flush)
-        plain_ms = event_ms(torch, lambda: warp.fwarp_shift_plain(img, flo, d),
-                            1, flush)
-        guarded_ms = event_ms(torch, lambda: warp.fwarp(img, flo, d), 10, flush)
+        r = timed(lambda: kernels.fwarp_shift(img, flo, d),
+                  lambda: warp.fwarp_shift_plain(img, flo, d), None, 1)
+        guarded_ms = timer.ms(lambda: warp.fwarp(img, flo, d), 10)
+        guarded_us = enqueue_us(torch, lambda: warp.fwarp(img, flo, d),
+                                ENQUEUE_CALLS)
+        # the share of its (2D+2) source rows per warp that the kernel
+        # skipped on these flows, counted by the kernel itself
+        skipped = None
+        if has_pair_entry:
+            stats = torch.zeros(2, dtype=torch.int64, device=dev)
+            counted = kernels.fwarp_shift(img, flo, d, row_stats=stats)
+            check(all(torch.equal(a, b) for a, b in zip(got, counted)),
+                  f"{name}: counting the rows changed the result")
+            tested, skipped_rows = (int(v) for v in stats.cpu())
+            check(tested > 0, f"{name}: the kernel counted no rows")
+            skipped = skipped_rows / tested
         bound_b = nbytes / HBM_BYTES_PER_S * 1e3
         bound_o = flops / F32_FLOPS_PER_S * 1e3
-        rows.append(dict(
+        r.update(
             case=name, kernel="fwarp_shift", per_window=2 if d == SHIFT_D else 0,
             max_abs_err=err, tol=SHIFT_RTOL * scale, bitwise_equal_to_plain=bitwise,
             two_runs_bitwise_equal=repeats, max_abs_err_vs_plain_splat=err_splat,
-            ms=ms, plain_ms=plain_ms, library_ms=None, guarded_fwarp_ms=guarded_ms,
+            guarded_fwarp_ms=guarded_ms, guarded_fwarp_enqueue_us=guarded_us,
+            rows_skipped_share=skipped,
             bytes=nbytes, operations=flops, window_ops=window_ops,
             bound_ms=max(bound_b, bound_o),
-            bound_by="bytes" if bound_b >= bound_o else "operations"))
+            bound_by="bytes" if bound_b >= bound_o else "operations")
+        rows.append(r)
         say(f"[3 kernels] {name}: max_abs_err {err:.3g} (tol "
             f"{SHIFT_RTOL * scale:.3g}; bitwise equal to plain: {bitwise}; two "
             f"runs bitwise equal: {repeats}); against the plain splat "
-            f"{err_splat:.3g} (tol {SPLAT_RTOL * scale:.3g}) | kernel {ms:.4f} "
-            f"ms, through the guard (flag pass, both launches) "
-            f"{guarded_ms:.4f} ms, plain {plain_ms:.4f} ms, library none (no "
-            f"single-call equivalent) | bound {max(bound_b, bound_o):.4f} ms "
-            f"by {rows[-1]['bound_by']} ({nbytes / 1e9:.4f} GB, "
+            f"{err_splat:.3g} (tol {SPLAT_RTOL * scale:.3g}) | "
+            f"{times_text(r, '')}; through the guard (flag pass, both "
+            f"launches) {guarded_ms:.4f} ms device, {guarded_us:.1f} us "
+            f"enqueue | source rows skipped by their range test: "
+            f"{'not counted' if skipped is None else f'{100 * skipped:.1f} %'}"
+            f" | bound {r['bound_ms']:.4f} ms "
+            f"by {r['bound_by']} ({nbytes / 1e9:.4f} GB, "
             f"{flops / 1e9:.3f} G operations; kernel at "
-            f"{ms / max(bound_b, bound_o):.1f}x; the window's tap tests, "
-            f"not in the bound: {window_ops / 1e9:.3f} G operations)")
+            f"{r['ms'] / r['bound_ms']:.1f}x; the window's tap tests, "
+            f"not in the bound: {window_ops / 1e9:.3f} G taps x 6)")
         check(all(bool(torch.isfinite(g).all()) for g in got),
               f"{name}: non-finite kernel output")
         check(err <= SHIFT_RTOL * scale,
@@ -342,6 +541,30 @@ def main() -> int:
         check(err_splat <= SPLAT_RTOL * scale,
               f"{name}: stencil disagrees with the plain splat ({err_splat})")
         check(repeats, f"{name}: two runs of the kernel differ")
+        check(bitwise, f"{name}: kernel not bitwise equal to its plain version")
+    # a window whose tile of targets does not fit a block's shared memory
+    # is refused, the largest that fits is served
+    if has_pair_entry:
+        d_max = kernels.FWARP_SHIFT_MAX_D
+        small_img, small_flo = img[:1, :, :40, :64].contiguous(), \
+            flo[:1, :, :40, :64].contiguous()
+        got = kernels.fwarp_shift(small_img, small_flo, d_max)
+        want = warp.fwarp_shift_plain(small_img, small_flo, d_max)
+        torch.cuda.synchronize()
+        check(all(torch.equal(a, b) for a, b in zip(got, want)),
+              f"D={d_max}: kernel not bitwise equal to its plain version")
+        n0 = kernels.fwarp_shift.launches
+        try:
+            kernels.fwarp_shift(small_img, small_flo, d_max + 1)
+        except ValueError as e:
+            refusal = str(e)
+        else:
+            fail(f"D={d_max + 1}: a window beyond the largest was not refused")
+        check(kernels.fwarp_shift.launches == n0,
+              "a refused window counted as a launch")
+        say(f"[3 kernels] shift: D={d_max} (the largest whose tile fits a "
+            f"block's shared memory) bitwise equal to plain at 40x64; "
+            f"D={d_max + 1} refused: {refusal}")
     # beyond the window the guard hands the call to the atomic splat
     flo = (t * flow_01).contiguous()
     kernels.fwarp_served(dev, reset=True)
@@ -356,9 +579,13 @@ def main() -> int:
     check(served == {"fwarp_shift": 0, "fwarp_splat": 1},
           f"guard: beyond the window the splat must serve, got {served}")
     check(err <= SPLAT_RTOL * scale, f"guard: splat route disagrees ({err})")
-    del cases, flush, ctx, fr_t, flow_01, flow_10, ft0, ft1, t, b0, b1
+    del timer, ctx, fr_t, flow_01, flow_10, ft0, ft1, flows_t, t, b0, b1
     del got, again, want, splat, img, flo
     torch.cuda.empty_cache()
+    if args.kernels_of:
+        say(json.dumps({"kernel_cases": rows, "card": card,
+                        "tree": args.kernels_of}))
+        return 0
 
     # ------------------------------------------------------- 4. main path
     engine = InferenceEngine(model, num_update=cfg.N_tst)

@@ -7,6 +7,8 @@ Three kernels carry the warp ops:
       (demfi_tpu/ops/pallas_kernels.py:58, :145): the bilinear,
       zero-padded gather behind ``bwarp`` (relative mode) and FGAC's
       ``bilinear_sample_abs`` (absolute mode).
+      :func:`bilinear_gather_pair` is the same launch on two halves
+      (``bwarp_pair``), the kernel taking both halves' pointers.
   ``fwarp_splat`` (csrc/fwarp_splat.cu) replaces ``_fwarp_kernel`` /
       ``fwarp_tpu`` (pallas_kernels.py:273, :343): the Gaussian forward
       splat behind CFR: float32 atomics, exact for any motion, bits
@@ -17,12 +19,24 @@ Three kernels carry the warp ops:
       atomic-free stencil sum over a (2D+2)^2 window, the same bits every
       run, exact where max|flo| <= D - 1.
 
-All three functions are bound by device-memory bytes (a few flops per
-byte moved); the stencil pays its window's tap tests on top of that. Each
-source file says what its design does about it. The TPU kernels' banded one-hot
-matmuls, slab sweeps and +-vr/+-127 motion window were Mosaic
-workarounds and are not carried over: the gather and the splat are exact
-for any motion and need no runtime guard.
+Bound: all three functions are bound by device-memory bytes (a few flops
+per byte moved). The gather reaches that bound's neighbourhood only at
+wide C and a large batch; at every C = 64 shape it delivers about the
+same output elements per second whatever its bytes: four tap loads per
+output element through the SM's load path hold it. The stencil pays the
+search of its window on top of its bytes.
+
+Design, in short (each source file says more): the gather is a 2-D grid
+with int32 offsets inside a plane, two query pixels per thread 32 apart,
+compile-time channel tiles, chunks of 8 channels per block, streaming
+stores, an optional ones plane and a two-half entry. The stencil loads
+its source window once per block into shared memory as one packed int32
+of floor(flo) per pixel, tests a tap with one load, one subtraction and
+one mask, skips rows and columns by per-row ranges reduced while the
+tile is loaded, and adds a warp's matches together. The TPU kernels'
+banded one-hot matmuls, slab sweeps and +-vr/+-127 motion window were
+Mosaic workarounds and are not carried over: the gather and the splat
+are exact for any motion and need no runtime guard.
 
 :func:`fwarp_guarded` chooses between the two forward warps without a
 copy to the host: the stencil's launch reduces ``any(|flo| > d - 1)`` to
@@ -70,6 +84,9 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 
 _libs: Dict[str, ctypes.CDLL] = {}
 _lock = threading.Lock()
+# the largest window of fwarp_shift: its (8 + 2d + 1) x (32 + 2d + 1) int32
+# tile must fit the 227 KB of shared memory a block can have
+FWARP_SHIFT_MAX_D = 107
 # per device: int32 [2], the calls served by (fwarp_shift, fwarp_splat)
 _served: Dict[torch.device, torch.Tensor] = {}
 
@@ -92,7 +109,10 @@ def _build_dir() -> Path:
 
 
 def build() -> Dict[str, ctypes.CDLL]:
-    """Build (if needed) and load every kernel library. Idempotent."""
+    """Build (if needed) and load every kernel library. Idempotent; once
+    the libraries are loaded a call takes no lock."""
+    if len(_libs) == len(SOURCES):
+        return _libs
     with _lock:
         if len(_libs) == len(SOURCES):
             return _libs
@@ -116,8 +136,9 @@ def build() -> Dict[str, ctypes.CDLL]:
                 os.replace(tmp, lib)
         if errors:
             raise RuntimeError("kernel build failed:\n" + "\n".join(errors))
-        for name in SOURCES:
-            _libs[name] = _bind(name, ctypes.CDLL(str(out_dir / f"lib{name}.so")))
+        loaded = {name: _bind(name, ctypes.CDLL(str(out_dir / f"lib{name}.so")))
+                  for name in SOURCES}
+        _libs.update(loaded)     # all at once: the check above counts them
         return _libs
 
 
@@ -125,16 +146,17 @@ def _bind(name: str, lib: ctypes.CDLL) -> ctypes.CDLL:
     vp, i = ctypes.c_void_p, ctypes.c_int
     if name == "bilinear_gather":
         fn = lib.demfi_bilinear_gather_f32
-        # img, coords, out, ones, B, C, H, W, Hq, Wq, relative, stream
-        fn.argtypes = [vp, vp, vp, vp, i, i, i, i, i, i, i, vp]
+        # img_a, img_b, coords_a, coords_b, out, ones, n, C, H, W, Hq, Wq,
+        # relative, stream
+        fn.argtypes = [vp, vp, vp, vp, vp, vp, i, i, i, i, i, i, i, vp]
     elif name == "fwarp_splat":
         fn = lib.demfi_fwarp_splat_f32
         # img, flo, out, norm, flag, served, B, C, H, W, stream
         fn.argtypes = [vp, vp, vp, vp, vp, vp, i, i, i, i, vp]
     else:
         fn = lib.demfi_fwarp_shift_f32
-        # img, flo, out, norm, flag, served, B, C, H, W, D, stream
-        fn.argtypes = [vp, vp, vp, vp, vp, vp, i, i, i, i, i, vp]
+        # img, flo, out, norm, flag, served, row_stats, B, C, H, W, D, stream
+        fn.argtypes = [vp, vp, vp, vp, vp, vp, vp, i, i, i, i, i, vp]
     fn.restype = i
     return lib
 
@@ -151,48 +173,99 @@ def _check(name: str, *tensors: torch.Tensor) -> None:
         raise ValueError(f"{name}: tensors on different devices")
 
 
+def _raw_stream(device: torch.device) -> int:
+    """The handle of the device's current stream. On an H100's host
+    ``torch.cuda.current_stream(device).cuda_stream`` (it builds a Stream
+    object) took 11.3 of a wrapper call's 46 microseconds; the raw getter,
+    which torch's own generated code calls, takes 0.5
+    (``python -m demfi_torch.utils.gather_variants``)."""
+    return torch._C._cuda_getCurrentRawStream(device.index)
+
+
 def _raise_on(name: str, rc: int) -> None:
     if rc != 0:
         raise RuntimeError(f"{name}: CUDA launch failed with cudaError {rc}")
 
 
-def bilinear_gather(img: torch.Tensor, coords: torch.Tensor, relative: bool
-                    ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
-    """Bilinear zero-padded gather of img [B,C,H,W] at coords [B,2,Hq,Wq].
-
-    relative=True (bwarp): sample at grid + coords (Hq, Wq == H, W) and
-    return (out * (ones >= 0.999), ones), ones being the float32 in-image
-    weight [B,1,H,W]. relative=False (FGAC): sample at the absolute coords
-    on any query grid and return (out, None)."""
-    if img.device.type == "cpu" and coords.device.type == "cpu":
-        return _warp.bilinear_gather_plain(img, coords, relative)
-    _check("bilinear_gather", img, coords)
-    b, c, h, w = img.shape
-    if coords.dim() != 4 or coords.shape[:2] != (b, 2):
+def _launch_gather(halves, relative: bool, want_ones: bool):
+    """One launch of the gather kernel on one or two (img, coords) halves
+    of equal shapes. Returns (out, ones) over all halves' batch elements,
+    the first half's first."""
+    (img, coords) = halves[0]
+    _check("bilinear_gather", *(t for half in halves for t in half))
+    n, c, h, w = img.shape
+    if coords.dim() != 4 or coords.shape[:2] != (n, 2):
         raise ValueError(f"bilinear_gather: coords {tuple(coords.shape)} "
                          f"for img {tuple(img.shape)}")
     hq, wq = coords.shape[2:]
     if relative and (hq, wq) != (h, w):
         raise ValueError("bilinear_gather: relative mode needs the query "
                          "grid to equal the image grid")
-    lib = build()["bilinear_gather"]
-    out = torch.empty((b, c, hq, wq), dtype=torch.float32, device=img.device)
-    ones = (torch.empty((b, 1, hq, wq), dtype=torch.float32,
-                        device=img.device) if relative else None)
-    rc = lib.demfi_bilinear_gather_f32(
-        img.data_ptr(), coords.data_ptr(), out.data_ptr(),
-        ones.data_ptr() if relative else None,
-        b, c, h, w, hq, wq, int(relative),
-        torch.cuda.current_stream(img.device).cuda_stream)
+    if any(i.shape != img.shape or q.shape != coords.shape
+           for i, q in halves[1:]):
+        raise ValueError("bilinear_gather: the two halves differ in shape")
+    if h * w >= 2 ** 31 or hq * wq >= 2 ** 31:
+        raise ValueError("bilinear_gather: a plane of 2^31 elements or more")
+    batch = len(halves) * n
+    out = torch.empty((batch, c, hq, wq), dtype=torch.float32,
+                      device=img.device)
+    ones = (torch.empty((batch, 1, hq, wq), dtype=torch.float32,
+                        device=img.device) if relative and want_ones else None)
+    img_b, coords_b = halves[1] if len(halves) == 2 else (None, None)
+    rc = build()["bilinear_gather"].demfi_bilinear_gather_f32(
+        img.data_ptr(), None if img_b is None else img_b.data_ptr(),
+        coords.data_ptr(), None if coords_b is None else coords_b.data_ptr(),
+        out.data_ptr(), None if ones is None else ones.data_ptr(),
+        n, c, h, w, hq, wq, int(relative),
+        _raw_stream(img.device))
     _raise_on("bilinear_gather", rc)
     bilinear_gather.launches += 1
     return out, ones
 
 
+def bilinear_gather(img: torch.Tensor, coords: torch.Tensor, relative: bool,
+                    want_ones: bool = True
+                    ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
+    """Bilinear zero-padded gather of img [B,C,H,W] at coords [B,2,Hq,Wq].
+
+    relative=True (bwarp): sample at grid + coords (Hq, Wq == H, W) and
+    return (out * (ones >= 0.999), ones), ones being the float32 in-image
+    weight [B,1,H,W], or None with want_ones=False: the kernel then
+    neither allocates nor writes the plane. relative=False (FGAC): sample
+    at the absolute coords on any query grid and return (out, None)."""
+    if img.device.type == "cpu" and coords.device.type == "cpu":
+        out, ones = _warp.bilinear_gather_plain(img, coords, relative)
+        return out, ones if want_ones else None
+    return _launch_gather([(img, coords)], relative, want_ones)
+
+
 bilinear_gather.launches = 0
 
 
+def bilinear_gather_pair(img_a: torch.Tensor, img_b: torch.Tensor,
+                         coords_a: torch.Tensor, coords_b: torch.Tensor,
+                         relative: bool, want_ones: bool = False):
+    """:func:`bilinear_gather` of two halves of equal shapes in one
+    launch (counted in ``bilinear_gather.launches``), the kernel taking
+    both halves' pointers: nothing is concatenated. Returns
+    ((out_a, out_b), (ones_a, ones_b) or None); on the card the two are
+    views of one allocation."""
+    tensors = (img_a, img_b, coords_a, coords_b)
+    if all(t.device.type == "cpu" for t in tensors):
+        out_a, ones_a = bilinear_gather(img_a, coords_a, relative, want_ones)
+        out_b, ones_b = bilinear_gather(img_b, coords_b, relative, want_ones)
+        return (out_a, out_b), (None if ones_a is None else (ones_a, ones_b))
+    out, ones = _launch_gather([(img_a, coords_a), (img_b, coords_b)],
+                               relative, want_ones)
+    n = img_a.shape[0]
+    return (out[:n], out[n:]), (None if ones is None
+                                else (ones[:n], ones[n:]))
+
+
 def _served_counter(device: torch.device) -> torch.Tensor:
+    counter = _served.get(device)       # a tensor's device has its index
+    if counter is not None:
+        return counter
     device = torch.device(device.type, device.index
                           if device.index is not None
                           else torch.cuda.current_device())
@@ -216,18 +289,21 @@ def _launch_splat(img, flo, out, norm, flag) -> None:
         img.data_ptr(), flo.data_ptr(), out.data_ptr(), norm.data_ptr(),
         flag.data_ptr() if flag is not None else None,
         _served_counter(img.device).data_ptr() + 4,
-        b, c, h, w, torch.cuda.current_stream(img.device).cuda_stream)
+        b, c, h, w, _raw_stream(img.device))
     _raise_on("fwarp_splat", rc)
     fwarp_splat.launches += 1
 
 
-def _launch_shift(img, flo, d, out, norm, flag) -> None:
+def _launch_shift(img, flo, d, out, norm, flag, row_stats=None) -> None:
     b, c, h, w = img.shape
+    if h * w >= 2 ** 31:
+        raise ValueError("fwarp_shift: a plane of 2^31 elements or more")
     rc = build()["fwarp_shift"].demfi_fwarp_shift_f32(
         img.data_ptr(), flo.data_ptr(), out.data_ptr(), norm.data_ptr(),
         flag.data_ptr() if flag is not None else None,
         _served_counter(img.device).data_ptr(),
-        b, c, h, w, int(d), torch.cuda.current_stream(img.device).cuda_stream)
+        row_stats.data_ptr() if row_stats is not None else None,
+        b, c, h, w, int(d), _raw_stream(img.device))
     _raise_on("fwarp_shift", rc)
     fwarp_shift.launches += 1
 
@@ -254,19 +330,35 @@ def fwarp_splat(img: torch.Tensor, flo: torch.Tensor
 fwarp_splat.launches = 0
 
 
-def fwarp_shift(img: torch.Tensor, flo: torch.Tensor, d: int
+def _check_window(name: str, d: int) -> None:
+    if not 1 <= d <= FWARP_SHIFT_MAX_D:
+        raise ValueError(f"{name}: window d must be in [1, "
+                         f"{FWARP_SHIFT_MAX_D}], got {d}")
+
+
+def fwarp_shift(img: torch.Tensor, flo: torch.Tensor, d: int,
+                row_stats: Optional[torch.Tensor] = None
                 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Deterministic forward warp of img [B,C,H,W] by flo [B,2,H,W]: the
     stencil sum over the (2d+2)^2 window, equal to the splat where
     max|flo| <= d - 1; splats beyond the window are dropped.
+    1 <= d <= FWARP_SHIFT_MAX_D (107), the largest window whose tile of
+    targets fits a block's shared memory; a larger d raises.
+    row_stats, for measurement on the card: an int64 [2] tensor to which
+    the kernel adds the source rows its warps tested and the rows their
+    vote skipped.
     Returns (warped [B,C,H,W], weight norm [B,1,H,W])."""
-    if d < 1:
-        raise ValueError(f"fwarp_shift: window d must be >= 1, got {d}")
+    _check_window("fwarp_shift", d)
     if img.device.type == "cpu" and flo.device.type == "cpu":
         return _warp.fwarp_shift_plain(img, flo, d)
     _check_fwarp("fwarp_shift", img, flo)
+    if row_stats is not None and (
+            row_stats.device != img.device or row_stats.dtype != torch.int64
+            or row_stats.shape != (2,)):
+        raise ValueError("fwarp_shift: row_stats must be an int64 [2] "
+                         "tensor on the image's device")
     out, norm = _fwarp_outputs(img, torch.empty)
-    _launch_shift(img, flo, d, out, norm, None)
+    _launch_shift(img, flo, d, out, norm, None, row_stats)
     return out, norm
 
 
@@ -284,8 +376,7 @@ def fwarp_guarded(img: torch.Tensor, flo: torch.Tensor, d: int
     clears the outputs, the splat does the work or returns at once.
     Nothing is copied to the host. On the CPU the flag is read and the
     one plain version runs."""
-    if d < 1:
-        raise ValueError(f"fwarp_guarded: window d must be >= 1, got {d}")
+    _check_window("fwarp_guarded", d)
     if img.device.type == "cpu" and flo.device.type == "cpu":
         if bool((flo.abs() > float(d - 1)).any()):
             return _warp.fwarp_splat_plain(img, flo)

@@ -194,23 +194,24 @@ def bwarp(x: torch.Tensor, flow: torch.Tensor) -> torch.Tensor:
     """out(p) = x(p + flow(p)), bilinear, zero padding, times the hard
     mask (in-image weight >= 0.999)."""
     out, _ = kernels.bilinear_gather(x.contiguous(), flow.contiguous(),
-                                     relative=True)
+                                     relative=True, want_ones=False)
     return out
 
 
 def bwarp_pair(a: torch.Tensor, b: torch.Tensor,
                flow_a: torch.Tensor, flow_b: torch.Tensor
                ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Both directions' backward warps as one batch-folded gather (one
-    kernel launch): gathers are independent per batch element. The two
+    """Both directions' backward warps as one gather (one kernel launch
+    that takes both halves' pointers: nothing is concatenated). The two
     halves must have equal shapes."""
     if a.shape != b.shape or flow_a.shape != flow_b.shape:
         raise ValueError(f"bwarp_pair: unequal halves {tuple(a.shape)}, "
                          f"{tuple(b.shape)}, {tuple(flow_a.shape)}, "
                          f"{tuple(flow_b.shape)}")
-    out = bwarp(torch.cat([a, b], dim=0), torch.cat([flow_a, flow_b], dim=0))
-    n = a.shape[0]
-    return out[:n], out[n:]
+    outs, _ = kernels.bilinear_gather_pair(
+        a.contiguous(), b.contiguous(), flow_a.contiguous(),
+        flow_b.contiguous(), relative=True)
+    return outs
 
 
 def bilinear_sample_abs(img: torch.Tensor, coords: torch.Tensor

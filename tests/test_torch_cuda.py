@@ -60,6 +60,90 @@ def test_gather_kernel_matches_plain(cuda_device, relative, c, grid):
         assert ones is None
 
 
+def _exact(got: torch.Tensor, want: torch.Tensor) -> None:
+    """Max abs error 0; NaN where the plain version has NaN."""
+    torch.testing.assert_close(got, want, atol=0, rtol=0, equal_nan=True)
+
+
+def _gather_inputs(rng, b, c, h, w, hq, wq, relative, dev):
+    """An image and coordinates that reach inside and outside it, with
+    NaN, infinite and far-outside entries (beyond int32 too)."""
+    img = torch.from_numpy(rng.randn(b, c, h, w).astype(np.float32))
+    if relative:
+        coords = rng.randn(b, 2, hq, wq) * 12
+    else:
+        coords = np.stack([rng.uniform(-6, w + 6, (b, hq, wq)),
+                           rng.uniform(-6, h + 6, (b, hq, wq))], 1)
+    coords = coords.astype(np.float32)
+    coords[0, 0, 0, :6] = [np.nan, np.inf, -np.inf, 1e6, -1e6, 3e9]
+    coords[0, 1, 1, :6] = [np.nan, np.inf, -np.inf, 1e6, -1e6, -3e9]
+    return img.to(dev), torch.from_numpy(coords).to(dev)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("relative", [True, False])
+@pytest.mark.parametrize("c", [1, 3, 4, 5, 16, 64, 70])
+def test_gather_kernel_is_exact_at_every_channel_count(cuda_device, relative,
+                                                       c):
+    """Every channel tile (1-4, the wide tile and its tail, the chunks of
+    8) on a 23x57 grid: an odd width, rows that end inside a block and an
+    output that is not 16-byte aligned from row to row."""
+    rng = np.random.RandomState(100 + c)
+    img, coords = _gather_inputs(rng, 2, c, 23, 57, 23, 57, relative,
+                                 cuda_device)
+    for want_ones in (True, False):
+        out, ones = kernels.bilinear_gather(img, coords, relative,
+                                            want_ones=want_ones)
+        pout, pones = warp.bilinear_gather_plain(img, coords, relative)
+        torch.cuda.synchronize()
+        _exact(out, pout)
+        if relative and want_ones:
+            _exact(ones, pones)
+        else:
+            assert ones is None
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("c", [2, 8])
+def test_gather_kernel_on_a_3x_query_grid(cuda_device, c):
+    rng = np.random.RandomState(7 + c)
+    img, coords = _gather_inputs(rng, 2, c, 19, 33, 57, 99, False, cuda_device)
+    out, ones = kernels.bilinear_gather(img, coords, False)
+    torch.cuda.synchronize()
+    assert ones is None and out.shape == (2, c, 57, 99)
+    _exact(out, warp.bilinear_gather_plain(img, coords, False)[0])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("want_ones", [True, False])
+@pytest.mark.parametrize("c", [3, 20])
+def test_gather_pair_entry_is_exact(cuda_device, c, want_ones):
+    """Two separate halves in one launch: each equals its plain version
+    and the single entry, and the ones plane comes only on request."""
+    rng = np.random.RandomState(c)
+    a, fa = _gather_inputs(rng, 3, c, 21, 70, 21, 70, True, cuda_device)
+    b, fb = _gather_inputs(rng, 3, c, 21, 70, 21, 70, True, cuda_device)
+    n = kernels.bilinear_gather.launches
+    (oa, ob), ones = kernels.bilinear_gather_pair(a, b, fa, fb, True,
+                                                  want_ones=want_ones)
+    torch.cuda.synchronize()
+    assert kernels.bilinear_gather.launches == n + 1
+    for out, img, flo, k in ((oa, a, fa, 0), (ob, b, fb, 1)):
+        pout, pones = warp.bilinear_gather_plain(img, flo, True)
+        _exact(out, pout)
+        _exact(out, kernels.bilinear_gather(img, flo, True)[0])
+        if want_ones:
+            _exact(ones[k], pones)
+    if not want_ones:
+        assert ones is None
+    wa, wb = warp.bwarp_pair(a, b, fa, fb)
+    _exact(wa, oa)
+    _exact(wb, ob)
+    with pytest.raises(ValueError):
+        kernels.bilinear_gather_pair(a, b[:2].contiguous(), fa,
+                                     fb[:2].contiguous(), True)
+
+
 @pytest.mark.cuda
 def test_splat_kernel_matches_plain(cuda_device):
     rng = np.random.RandomState(3)
@@ -100,6 +184,60 @@ def test_shift_kernel_matches_plain_and_repeats(cuda_device, d, c):
     torch.testing.assert_close(out.cpu(), sout, atol=1e-5 * float(
         sout.abs().max()), rtol=1e-5)
     torch.testing.assert_close(norm.cpu(), snorm, atol=1e-5, rtol=1e-5)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("c", [1, 2, 5])
+@pytest.mark.parametrize("d", [1, 3, 8, 20, 32])
+def test_shift_kernel_is_bitwise_its_plain_version(cuda_device, d, c):
+    """Sizes that are no multiples of the 32x16 tile, flows with NaN,
+    infinities and displacements beyond the window (dropped, as the
+    plain version drops them): bitwise equal to fwarp_shift_plain on the
+    card and to a second run."""
+    rng = np.random.RandomState(10 * d + c)
+    h, w = 37, 75
+    img = torch.from_numpy(rng.randn(2, c, h, w).astype(np.float32) * 3)
+    flo = rng.uniform(-(d - 1), d - 1, (2, 2, h, w)).astype(np.float32)
+    flo[0, :, :5] = np.round(flo[0, :, :5])             # bucket edges
+    flo[1, :, 5:9] = rng.uniform(-2.5 * d, 2.5 * d, (2, 4, w))  # beyond
+    flo[1, 0, 10, :4] = [np.nan, np.inf, -np.inf, 1e9]
+    flo[1, 1, 11, :4] = [np.nan, np.inf, -np.inf, -1e9]
+    img, flo = img.to(cuda_device), torch.from_numpy(flo).to(cuda_device)
+    stats = torch.zeros(2, dtype=torch.int64, device=cuda_device)
+    out, norm = kernels.fwarp_shift(img, flo, d)
+    again, nagain = kernels.fwarp_shift(img, flo, d, row_stats=stats)
+    pout, pnorm = warp.fwarp_shift_plain(img, flo, d)
+    torch.cuda.synchronize()
+    assert torch.equal(out, again) and torch.equal(norm, nagain)
+    assert torch.equal(out, pout) and torch.equal(norm, pnorm)
+    assert bool(torch.isfinite(out).all())
+    tested, skipped = (int(v) for v in stats.cpu())
+    # every warp (32 pixels of one row, in blocks of 16 rows, 4 channels
+    # a pass) considers its 2d + 2 source rows
+    warps = 2 * (-(-h // 16) * 16) * -(-w // 32) * -(-c // 4)
+    assert tested == warps * (2 * d + 2) and 0 <= skipped < tested
+
+
+@pytest.mark.cuda
+def test_shift_kernel_largest_window(cuda_device):
+    """The largest window whose tile fits a block's shared
+    memory is served, bitwise; the next one is refused and launches nothing."""
+    d = kernels.FWARP_SHIFT_MAX_D
+    rng = np.random.RandomState(d)
+    img = torch.from_numpy(rng.randn(1, 2, 20, 45).astype(np.float32)).to(
+        cuda_device)
+    flo = torch.from_numpy(rng.uniform(-40, 40, (1, 2, 20, 45)).astype(
+        np.float32)).to(cuda_device)
+    out, norm = kernels.fwarp_shift(img, flo, d)
+    pout, pnorm = warp.fwarp_shift_plain(img, flo, d)
+    torch.cuda.synchronize()
+    assert torch.equal(out, pout) and torch.equal(norm, pnorm)
+    n = kernels.fwarp_shift.launches
+    with pytest.raises(ValueError, match="window d"):
+        kernels.fwarp_shift(img, flo, d + 1)
+    with pytest.raises(ValueError, match="window d"):
+        kernels.fwarp_guarded(img, flo, d + 1)
+    assert kernels.fwarp_shift.launches == n
 
 
 @pytest.mark.cuda

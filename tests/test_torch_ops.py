@@ -92,6 +92,106 @@ def test_bwarp_pair_rejects_unequal_halves(data):
         warp.bwarp_pair(to_t(img), to_t(img[:1]), to_t(flow), to_t(flow2))
 
 
+def _pair_inputs(channels: int, seed: int):
+    """Two image halves and two flow fields (0 to +-30 px) on a 20x36
+    grid, from a numpy seed, NHWC."""
+    rng = np.random.RandomState(seed)
+    b, h, w = 3, 20, 36
+    a = rng.uniform(-1, 1, (b, h, w, channels)).astype(np.float32)
+    c = rng.uniform(-1, 1, (b, h, w, channels)).astype(np.float32)
+    fa = (rng.uniform(-1, 1, (b, h, w, 2)) *
+          rng.choice([0.0, 0.7, 4.0, 30.0], (b, h, w, 1))).astype(np.float32)
+    fc = (rng.randn(b, h, w, 2) * 5.0).astype(np.float32)
+    return a, c, fa, fc
+
+
+@pytest.mark.parametrize("channels", [1, 3, 5])
+def test_bwarp_pair_equals_two_bwarps_and_jax(channels):
+    """The pair entry gives each half what bwarp gives it, bit for bit,
+    and the JAX package's bwarp_pair to 1e-5."""
+    a, c, fa, fc = _pair_inputs(channels, 40 + channels)
+    got_a, got_c = warp.bwarp_pair(to_t(a), to_t(c), to_t(fa), to_t(fc))
+    assert torch.equal(got_a, warp.bwarp(to_t(a), to_t(fa)))
+    assert torch.equal(got_c, warp.bwarp(to_t(c), to_t(fc)))
+    ja, jc = jwarp.bwarp_pair(a, c, fa, fc)
+    close(got_a, ja)
+    close(got_c, jc)
+
+
+@pytest.mark.parametrize("channels", [3, 64])
+def test_bwarp_pair_concatenates_nothing(monkeypatch, channels):
+    """bwarp_pair hands its halves to the gather as they are: no
+    torch.cat of images or flows on the way."""
+    a, c, fa, fc = (to_t(x) for x in _pair_inputs(channels, 50 + channels))
+    calls = []
+    cat = torch.cat
+    monkeypatch.setattr(torch, "cat",
+                        lambda *args, **kw: calls.append(1) or cat(*args, **kw))
+    got_a, got_c = warp.bwarp_pair(a, c, fa, fc)
+    monkeypatch.undo()
+    assert calls == []
+    assert got_a.shape == a.shape and got_c.shape == c.shape
+
+
+@pytest.mark.parametrize("want_ones", [True, False])
+def test_bwarp_is_the_gather_with_or_without_the_ones_plane(data, want_ones):
+    """bwarp equals the plain gather's first result whether or not the
+    in-image weight plane is asked of the wrapper; bwarp itself asks for
+    none."""
+    img, flow, _ = data
+    want, want_plane = warp.bilinear_gather_plain(to_t(img), to_t(flow), True)
+    out, ones = kernels.bilinear_gather(to_t(img), to_t(flow), relative=True,
+                                        want_ones=want_ones)
+    assert torch.equal(out, want)
+    assert torch.equal(warp.bwarp(to_t(img), to_t(flow)), want)
+    if want_ones:
+        assert torch.equal(ones, want_plane)
+    else:
+        assert ones is None
+
+
+def test_bwarp_asks_for_no_ones_plane(data, monkeypatch):
+    img, flow, _ = data
+    asked = []
+    gather = kernels.bilinear_gather
+
+    def spy(*args, **kw):
+        asked.append(kw.get("want_ones"))
+        return gather(*args, **kw)
+    monkeypatch.setattr(kernels, "bilinear_gather", spy)
+    warp.bwarp(to_t(img), to_t(flow))
+    assert asked == [False]
+
+
+@pytest.mark.parametrize("want_ones", [True, False])
+def test_gather_pair_wrapper_on_cpu(want_ones):
+    """The pair wrapper on CPU tensors: the plain version on each half,
+    the planes only on request, nothing launched."""
+    a, c, fa, fc = (to_t(x) for x in _pair_inputs(4, 60))
+    before = kernels.launch_counts()
+    outs, ones = kernels.bilinear_gather_pair(a, c, fa, fc, relative=True,
+                                              want_ones=want_ones)
+    for out, img, flo, k in ((outs[0], a, fa, 0), (outs[1], c, fc, 1)):
+        pout, pones = warp.bilinear_gather_plain(img, flo, True)
+        assert torch.equal(out, pout)
+        if want_ones:
+            assert torch.equal(ones[k], pones)
+    if not want_ones:
+        assert ones is None
+    assert kernels.launch_counts() == before
+
+
+@pytest.mark.parametrize("d", [0, kernels.FWARP_SHIFT_MAX_D + 1])
+def test_fwarp_shift_refuses_windows_outside_its_range(data, d):
+    """A window below 1 or beyond the largest whose tile fits shared
+    memory raises on any device; the largest is taken."""
+    img, flow, _ = data
+    with pytest.raises(ValueError, match="window d"):
+        kernels.fwarp_shift(to_t(img), to_t(flow), d)
+    with pytest.raises(ValueError, match="window d"):
+        kernels.fwarp_guarded(to_t(img), to_t(flow), d)
+
+
 @pytest.mark.parametrize("grid", [(24, 40), (30, 17), (72, 120)])
 def test_bilinear_sample_abs(data, grid):
     """Absolute coordinates over the image and beyond it, on query grids
