@@ -23,7 +23,14 @@ Phases:
      torch.cat, equal to the gather of the concatenation; FGAC's
      absolute sample), with and without the in-image weight plane, and
      on a 3Hx3W query grid; a case without the plane counts no plane
-     into its byte bound. The stencil forward warp runs at D = 8 (flows
+     into its byte bound. The atomic splat runs on the smooth CFR flows
+     (the main path's call), on i.i.d. noise flows of the same peak (its
+     worst case: no source tile's targets fit its shared box) and on
+     flows with NaN, infinite and huge entries (dropped by the kernel,
+     held against the plain version with those entries set to 1e9), each
+     with the share of its blocks per route (shared box or global
+     atomics), after a line of how far floor(flo) spreads inside its
+     source tiles. The stencil forward warp runs at D = 8 (flows
      scaled into its window) and D = 32 (the 24 px flows), against its
      plain version (bitwise) and the plain splat, twice for a bitwise
      comparison, with the share of source rows its range test skipped,
@@ -61,6 +68,7 @@ from __future__ import annotations
 import argparse
 import contextlib
 import dataclasses
+import inspect
 import io
 import json
 import os
@@ -89,6 +97,10 @@ EVAL_SCENES, EVAL_BLUR_FRAMES = 2, 5       # 2 windows per scene
 CUSTOM_H, CUSTOM_W = 128, 192
 GATHER_TOL = 1e-5
 SPLAT_RTOL = 1e-5              # of the largest |value|: atomics reorder sums
+SPLAT_TILE = (8, 32)           # fwarp_splat.cu's source tile, rows x columns
+SPREAD_BINS = ((0, 0), (1, 1), (2, 2), (3, 4), (5, 8), (9, 16), (17, 10 ** 6))
+NONFINITE_SHARE = 1e-3         # of the flow entries, in the non-finite case
+NONFINITE_VALUES = (np.nan, np.inf, -np.inf, 1e9, -1e9)
 # stencil against its plain version: the same order and rounding, so 0 is
 # expected; 1e-6 of the largest |value| allows one ulp of expf
 SHIFT_RTOL = 1e-6
@@ -425,37 +437,6 @@ def main() -> int:
     no_ones("gather rel C=3 B=14 no ones plane", b01, flows_t)
     del b01, n_b0, n_b1
 
-    # the atomic splat; C = 2 (CFR warps the flows)
-    img, flo = flow_01, (t * flow_01).contiguous()
-    got = kernels.fwarp_splat(img, flo)
-    want = warp.fwarp_splat_plain(img, flo)
-    torch.cuda.synchronize()
-    scale = max(float(p.abs().max()) for p in want)
-    err = max(float((g - p).abs().max()) for g, p in zip(got, want))
-    tol = SPLAT_RTOL * max(1.0, scale)
-    b, c = img.shape[:2]
-    nbytes = 4 * (img.numel() + flo.numel() + img.numel() + b * H * W)
-    flops = b * H * W * 4 * (2 * (c + 1) + 12)
-    r = timed(lambda: kernels.fwarp_splat(img, flo),
-              lambda: warp.fwarp_splat_plain(img, flo), None, 3)
-    bound_b = nbytes / HBM_BYTES_PER_S * 1e3
-    bound_o = flops / F32_FLOPS_PER_S * 1e3
-    r.update(case="splat C=2 B=7", kernel="fwarp_splat", per_window=2,
-             max_abs_err=err, tol=tol, bytes=nbytes,
-             bound_ms=max(bound_b, bound_o),
-             bound_by="bytes" if bound_b >= bound_o else "operations")
-    rows.append(r)
-    say(f"[3 kernels] splat C=2 B=7: max_abs_err {err:.3g} (tol {tol:.3g}) | "
-        f"{times_text(r, '')} | bound {r['bound_ms']:.4f} ms by "
-        f"{r['bound_by']} ({nbytes / 1e9:.4f} GB; kernel at "
-        f"{r['ms'] / r['bound_ms']:.2f}x)")
-    check(all(bool(torch.isfinite(g).all()) for g in got),
-          "splat: non-finite kernel output")
-    check(err <= tol, f"splat: kernel disagrees with its plain version "
-                      f"({err} > {tol})")
-
-    # the stencil forward warp: D = 8 on the flows scaled into its
-    # window, D = 32 on the 24 px flows; C = 2 (CFR warps the flows)
     def corners_in_image(flo):
         r = torch.floor(flo[:, 1]) + torch.arange(H, device=dev)[None, :, None]
         c = torch.floor(flo[:, 0]) + torch.arange(W, device=dev)[None, None]
@@ -463,6 +444,97 @@ def main() -> int:
                         & (c + dc < W)).sum())
                    for dr in (0, 1) for dc in (0, 1))
 
+    # the atomic splat; C = 2 (CFR warps the flows), on three inputs: the
+    # main path's smooth flows; i.i.d. uniform noise of the same peak
+    # (FLOW_TARGET_PX), whose source tiles' targets spread too far for the
+    # kernel's shared box: the worst case for its tile design; and the
+    # smooth flows with NaN, infinite and huge entries, which the kernel
+    # drops, held against the plain version on the flows with those
+    # entries set to 1e9 (which drops them there too)
+    has_routes = "route_stats" in inspect.signature(
+        kernels.fwarp_splat).parameters
+    img = flow_01
+    b, c = img.shape[:2]
+    tile_y, tile_x = SPLAT_TILE
+    splat_blocks = b * -(-H // tile_y) * -(-W // tile_x)
+    flo_smooth = (t * flow_01).contiguous()
+    noise = np.random.RandomState(SEED + 3).uniform(
+        -FLOW_TARGET_PX, FLOW_TARGET_PX, tuple(flo_smooth.shape))
+    flo_noise = torch.from_numpy(noise.astype(np.float32)).to(dev)
+    bad = flo_smooth.cpu().numpy()
+    where = np.random.RandomState(SEED + 4).rand(*bad.shape) < NONFINITE_SHARE
+    bad[where] = np.resize(np.array(NONFINITE_VALUES, np.float32),
+                           int(where.sum()))
+    flo_bad = torch.from_numpy(bad).to(dev)
+    bad[where] = 1e9
+    flo_bad_dropped = torch.from_numpy(bad).to(dev)
+
+    # why a tile design can work: how far floor(flo) spreads inside each
+    # source tile of the kernel (the larger of its two components' max -
+    # min), as a share of tiles per spread
+    fl = torch.floor(flo_smooth).reshape(b, 2, H // tile_y, tile_y,
+                                         W // tile_x, tile_x)
+    spread = (fl.amax(dim=(3, 5)) - fl.amin(dim=(3, 5))).amax(dim=1).long()
+    spread_counts = torch.bincount(spread.flatten()).cpu().tolist()
+    n_tiles = spread.numel()
+    tile_spread = {}
+    for lo, hi in SPREAD_BINS:
+        n = sum(spread_counts[lo:hi + 1])
+        tile_spread[f"{lo}" if lo == hi else f"{lo}-{hi}"] = n / n_tiles
+    say(f"[3 kernels] splat: spread of floor(flo) inside each {tile_y}x"
+        f"{tile_x} source tile of the smooth CFR flows (max - min, the larger "
+        f"of the two components), share of {n_tiles} tiles: " + ", ".join(
+            f"{k} px {100 * v:.1f} %" for k, v in tile_spread.items()))
+
+    def splat_case(name, flo, want_flo, per_window):
+        got = kernels.fwarp_splat(img, flo)
+        want = warp.fwarp_splat_plain(img, want_flo)
+        torch.cuda.synchronize()
+        scale = max(float(p.abs().max()) for p in want)
+        err = max(float((g - p).abs().max()) for g, p in zip(got, want))
+        tol = SPLAT_RTOL * max(1.0, scale)
+        shared_share = None
+        if has_routes:
+            stats = torch.zeros(2, dtype=torch.int64, device=dev)
+            kernels.fwarp_splat(img, flo, route_stats=stats)
+            shared_blocks, global_blocks = (int(v) for v in stats.cpu())
+            check(shared_blocks + global_blocks == splat_blocks,
+                  f"{name}: {shared_blocks} + {global_blocks} blocks counted, "
+                  f"the grid has {splat_blocks}")
+            shared_share = shared_blocks / splat_blocks
+        nbytes = 4 * (img.numel() + flo.numel() + img.numel() + b * H * W)
+        # per corner inside the image the weight and the C+1 multiply-adds
+        flops = corners_in_image(flo) * (2 * (c + 1) + 12)
+        r = timed(lambda: kernels.fwarp_splat(img, flo),
+                  lambda: warp.fwarp_splat_plain(img, want_flo), None, 3)
+        bound_b = nbytes / HBM_BYTES_PER_S * 1e3
+        bound_o = flops / F32_FLOPS_PER_S * 1e3
+        r.update(case=name, kernel="fwarp_splat", per_window=per_window,
+                 max_abs_err=err, tol=tol, bytes=nbytes, operations=flops,
+                 shared_route_share=shared_share,
+                 bound_ms=max(bound_b, bound_o),
+                 bound_by="bytes" if bound_b >= bound_o else "operations")
+        rows.append(r)
+        routes = ("not counted" if shared_share is None else
+                  f"{100 * shared_share:.1f} % of {splat_blocks} blocks on "
+                  f"the shared route, {100 * (1 - shared_share):.1f} % global")
+        say(f"[3 kernels] {name}: max_abs_err {err:.3g} (tol {tol:.3g}) | "
+            f"{times_text(r, '')} | bound {r['bound_ms']:.4f} ms by "
+            f"{r['bound_by']} ({nbytes / 1e9:.4f} GB, {flops / 1e9:.4f} G "
+            f"operations; kernel at {r['ms'] / r['bound_ms']:.2f}x) | "
+            f"{routes}")
+        check(all(bool(torch.isfinite(g).all()) for g in got),
+              f"{name}: non-finite kernel output")
+        check(err <= tol, f"{name}: kernel disagrees with its plain version "
+                          f"({err} > {tol})")
+
+    splat_case("splat C=2 B=7", flo_smooth, flo_smooth, 2)
+    splat_case("splat C=2 B=7 noise", flo_noise, flo_noise, 0)
+    splat_case("splat C=2 B=7 non-finite", flo_bad, flo_bad_dropped, 0)
+    del flo_smooth, flo_noise, flo_bad, flo_bad_dropped, fl, spread
+
+    # the stencil forward warp: D = 8 on the flows scaled into its
+    # window, D = 32 on the 24 px flows; C = 2 (CFR warps the flows)
     def window_taps(n, d):
         # over output positions 0..n-1: source positions inside [0, n)
         # among the 2d + 2 of the window
@@ -584,6 +656,7 @@ def main() -> int:
     torch.cuda.empty_cache()
     if args.kernels_of:
         say(json.dumps({"kernel_cases": rows, "card": card,
+                        "splat_tile_spread": tile_spread,
                         "tree": args.kernels_of}))
         return 0
 
@@ -894,7 +967,8 @@ def main() -> int:
         summary("fwarp_shift", "demfi_torch/csrc/fwarp_shift.cu",
                 "demfi_tpu/ops/pallas_kernels.py:479", SPLATS_PER_WINDOW,
                 eval_launches["fwarp_shift"]),
-    ], "card": card, "windows_per_s": 1 / s_win,
+    ], "card": card, "splat_tile_spread": tile_spread,
+        "windows_per_s": 1 / s_win,
         "frames_per_s": (M - 1) / s_win, "window_seconds": secs,
         "peak_bytes": peak_bytes,
         "bytes_per_pixel_instant": per_pi,

@@ -12,7 +12,8 @@ Three kernels carry the warp ops:
   ``fwarp_splat`` (csrc/fwarp_splat.cu) replaces ``_fwarp_kernel`` /
       ``fwarp_tpu`` (pallas_kernels.py:273, :343): the Gaussian forward
       splat behind CFR: float32 atomics, exact for any motion, bits
-      that vary from run to run.
+      that vary from run to run; a source pixel with a non-finite or
+      huge flow is dropped.
   ``fwarp_shift`` (csrc/fwarp_shift.cu) replaces ``_fwarp_shift_kernel_v2``
       and ``_fwarp_shift_kernel`` / ``fwarp_shift_tpu``
       (pallas_kernels.py:479, :421, :551): the same forward warp as an
@@ -24,7 +25,7 @@ per byte moved). The gather reaches that bound's neighbourhood only at
 wide C and a large batch; at every C = 64 shape it delivers about the
 same output elements per second whatever its bytes: four tap loads per
 output element through the SM's load path hold it. The stencil pays the
-search of its window on top of its bytes.
+search of its window on top of its bytes; the splat its atomics.
 
 Design, in short (each source file says more): the gather is a 2-D grid
 with int32 offsets inside a plane, two query pixels per thread 32 apart,
@@ -33,7 +34,11 @@ stores, an optional ones plane and a two-half entry. The stencil loads
 its source window once per block into shared memory as one packed int32
 of floor(flo) per pixel, tests a tap with one load, one subtraction and
 one mask, skips rows and columns by per-row ranges reduced while the
-tile is loaded, and adds a warp's matches together. The TPU kernels'
+tile is loaded, and adds a warp's matches together. The splat gathers a
+32x8 source tile's splats in a shared-memory box of their targets with
+shared atomics and flushes it with one 16-byte global reduction per four
+targets and plane; a tile whose targets spread beyond the box adds
+straight to global memory, in the same launch. The TPU kernels'
 banded one-hot matmuls, slab sweeps and +-vr/+-127 motion window were
 Mosaic workarounds and are not carried over: the gather and the splat
 are exact for any motion and need no runtime guard.
@@ -151,8 +156,8 @@ def _bind(name: str, lib: ctypes.CDLL) -> ctypes.CDLL:
         fn.argtypes = [vp, vp, vp, vp, vp, vp, i, i, i, i, i, i, i, vp]
     elif name == "fwarp_splat":
         fn = lib.demfi_fwarp_splat_f32
-        # img, flo, out, norm, flag, served, B, C, H, W, stream
-        fn.argtypes = [vp, vp, vp, vp, vp, vp, i, i, i, i, vp]
+        # img, flo, out, norm, flag, served, route_stats, B, C, H, W, stream
+        fn.argtypes = [vp, vp, vp, vp, vp, vp, vp, i, i, i, i, vp]
     else:
         fn = lib.demfi_fwarp_shift_f32
         # img, flo, out, norm, flag, served, row_stats, B, C, H, W, D, stream
@@ -283,12 +288,15 @@ def _check_fwarp(name: str, img: torch.Tensor, flo: torch.Tensor) -> None:
                          f"{tuple(img.shape)}")
 
 
-def _launch_splat(img, flo, out, norm, flag) -> None:
+def _launch_splat(img, flo, out, norm, flag, route_stats=None) -> None:
     b, c, h, w = img.shape
+    if h * w >= 2 ** 31:
+        raise ValueError("fwarp_splat: a plane of 2^31 elements or more")
     rc = build()["fwarp_splat"].demfi_fwarp_splat_f32(
         img.data_ptr(), flo.data_ptr(), out.data_ptr(), norm.data_ptr(),
         flag.data_ptr() if flag is not None else None,
         _served_counter(img.device).data_ptr() + 4,
+        route_stats.data_ptr() if route_stats is not None else None,
         b, c, h, w, _raw_stream(img.device))
     _raise_on("fwarp_splat", rc)
     fwarp_splat.launches += 1
@@ -310,20 +318,40 @@ def _launch_shift(img, flo, d, out, norm, flag, row_stats=None) -> None:
 
 def _fwarp_outputs(img: torch.Tensor, alloc
                    ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(out [B,C,H,W], norm [B,1,H,W]): two contiguous views of one
+    allocation, so that the splat's zeroing is one fill, not two."""
     b, c, h, w = img.shape
-    return (alloc((b, c, h, w), dtype=torch.float32, device=img.device),
-            alloc((b, 1, h, w), dtype=torch.float32, device=img.device))
+    n = b * c * h * w
+    buf = alloc(n + b * h * w, dtype=torch.float32, device=img.device)
+    return buf[:n].view(b, c, h, w), buf[n:].view(b, 1, h, w)
 
 
-def fwarp_splat(img: torch.Tensor, flo: torch.Tensor
+def _check_stats(name: str, stats: Optional[torch.Tensor],
+                 img: torch.Tensor) -> None:
+    if stats is not None and (stats.device != img.device
+                              or stats.dtype != torch.int64
+                              or stats.shape != (2,)):
+        raise ValueError(f"{name}: its stats must be an int64 [2] tensor on "
+                         f"the image's device")
+
+
+def fwarp_splat(img: torch.Tensor, flo: torch.Tensor,
+                route_stats: Optional[torch.Tensor] = None
                 ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Gaussian forward splat of img [B,C,H,W] by flo [B,2,H,W].
+    """Gaussian forward splat of img [B,C,H,W] by flo [B,2,H,W], exact for
+    any motion. A source pixel whose flow is NaN, infinite or so large
+    that no corner lies in the image is dropped on the card (the plain
+    version has no defined result there).
+    route_stats, for measurement on the card: an int64 [2] tensor to
+    which the kernel adds its 32x8 source tiles that went through the
+    shared-memory box and those that added straight to global memory.
     Returns (warped [B,C,H,W], weight norm [B,1,H,W])."""
     if img.device.type == "cpu" and flo.device.type == "cpu":
         return _warp.fwarp_splat_plain(img, flo)
     _check_fwarp("fwarp_splat", img, flo)
+    _check_stats("fwarp_splat", route_stats, img)
     out, norm = _fwarp_outputs(img, torch.zeros)
-    _launch_splat(img, flo, out, norm, None)
+    _launch_splat(img, flo, out, norm, None, route_stats)
     return out, norm
 
 
@@ -352,11 +380,7 @@ def fwarp_shift(img: torch.Tensor, flo: torch.Tensor, d: int,
     if img.device.type == "cpu" and flo.device.type == "cpu":
         return _warp.fwarp_shift_plain(img, flo, d)
     _check_fwarp("fwarp_shift", img, flo)
-    if row_stats is not None and (
-            row_stats.device != img.device or row_stats.dtype != torch.int64
-            or row_stats.shape != (2,)):
-        raise ValueError("fwarp_shift: row_stats must be an int64 [2] "
-                         "tensor on the image's device")
+    _check_stats("fwarp_shift", row_stats, img)
     out, norm = _fwarp_outputs(img, torch.empty)
     _launch_shift(img, flo, d, out, norm, None, row_stats)
     return out, norm

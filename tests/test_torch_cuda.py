@@ -7,7 +7,7 @@ imports nothing of JAX, so it also runs where JAX is not installed:
 
 Tolerances: the gather uses round-to-nearest arithmetic in its plain
 version's order (atol/rtol 1e-5); the splat's atomics add in a varying
-order (rounding-level differences, rtol 1e-5 of the values); the
+order (rounding-level differences, 1e-5 of the largest value); the
 stencil forward warp adds in its plain version's order with
 round-to-nearest arithmetic (atol/rtol 1e-6, and bitwise equal from run
 to run); the whole network, card against CPU, atol/rtol 1e-3 (float32 convolutions of
@@ -160,6 +160,100 @@ def test_splat_kernel_matches_plain(cuda_device):
                                atol=1e-5 * float(pnorm.abs().max()), rtol=1e-5)
 
 
+SPLAT_TILE = (8, 32)         # fwarp_splat.cu's source tile: rows, columns
+
+
+def _splat_flows(rng, kind: str, b: int, h: int, w: int) -> np.ndarray:
+    """Flows [b,2,h,w]: "smooth" (an offset of a few px that varies
+    slowly: every source tile's targets fit the kernel's shared box),
+    "noise" (i.i.d. +-24 px) or "mixed" (the top half smooth, the bottom
+    noise: both routes in one launch)."""
+    yy, xx = np.meshgrid(np.arange(h), np.arange(w), indexing="ij")
+    smooth = (np.stack([1.5 * np.sin(xx / 40.0 + yy / 30.0) + 4.3,
+                        1.2 * np.cos(yy / 35.0 - xx / 50.0) - 2.6])[None]
+              * rng.uniform(0.5, 1.5, (b, 1, 1, 1)))
+    noise = rng.uniform(-24, 24, (b, 2, h, w))
+    if kind == "smooth":
+        flo = smooth
+    elif kind == "noise":
+        flo = noise
+    else:
+        flo = np.concatenate([smooth[:, :, :h // 2], noise[:, :, h // 2:]], 2)
+    return np.ascontiguousarray(flo, np.float32)
+
+
+def _close_to_plain(out, norm, pout, pnorm) -> None:
+    """Within 1e-5 of the largest value: atomics add in a varying order."""
+    scale = max(1.0, float(pout.abs().max()), float(pnorm.abs().max()))
+    torch.testing.assert_close(out, pout, atol=1e-5 * scale, rtol=1e-5)
+    torch.testing.assert_close(norm, pnorm, atol=1e-5 * scale, rtol=1e-5)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("flows", ["smooth", "noise", "mixed"])
+@pytest.mark.parametrize("h,w", [(37, 75), (40, 56), (70, 130)])
+@pytest.mark.parametrize("c", [1, 2, 3, 5])
+def test_splat_kernel_routes_match_plain(cuda_device, c, h, w, flows):
+    """Sizes that are no multiples of the 8x32 source tile, W a multiple
+    of 4 (16-byte flush) or not (scalar flush), on flows whose tiles take
+    the shared box, global atomics or both in one launch: equal to the
+    plain version, one launch, and every block counted on one route."""
+    rng = np.random.RandomState(c * 1000 + h + w)
+    b = 2
+    img = torch.from_numpy(rng.randn(b, c, h, w).astype(np.float32) * 4).to(
+        cuda_device)
+    flo = torch.from_numpy(_splat_flows(rng, flows, b, h, w)).to(cuda_device)
+    stats = torch.zeros(2, dtype=torch.int64, device=cuda_device)
+    n = kernels.fwarp_splat.launches
+    out, norm = kernels.fwarp_splat(img, flo, route_stats=stats)
+    pout, pnorm = warp.fwarp_splat_plain(img, flo)
+    torch.cuda.synchronize()
+    assert kernels.fwarp_splat.launches == n + 1
+    _close_to_plain(out, norm, pout, pnorm)
+    shared, spilled = (int(v) for v in stats.cpu())
+    ty, tx = SPLAT_TILE
+    assert shared + spilled == b * -(-h // ty) * -(-w // tx)
+    if flows == "smooth":
+        assert spilled == 0
+    if flows == "mixed":
+        assert shared > 0
+    if flows != "smooth" and (h, w) == (70, 130):
+        # a noise tile's box spans about 56x80 targets: no C fits it
+        assert spilled > 0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("c", [1, 3])
+@pytest.mark.parametrize("h,w", [(37, 75), (40, 56)])
+def test_splat_kernel_drops_non_finite_flows(cuda_device, c, h, w):
+    """NaN, infinite and +-1e9 flow entries drop their source pixel: the
+    output is finite, equal to the plain version on the flows with those
+    entries set to 1e9 (which drops them there too), and such pixels do
+    not widen their tile's box (smooth flows stay on the shared route)."""
+    rng = np.random.RandomState(c + h)
+    b = 2
+    img = torch.from_numpy(rng.randn(b, c, h, w).astype(np.float32)).to(
+        cuda_device)
+    flo = _splat_flows(rng, "smooth", b, h, w)
+    bad = [np.nan, np.inf, -np.inf, 1e9, -1e9]
+    flo[0, 0, 3, 5:10] = bad
+    flo[0, 1, 9, 20:25] = bad
+    flo[1, 0, h - 1, w - 5:] = bad
+    flo[1, 1, 17, 40:45] = bad
+    flo[1, :, 30, 2:7] = np.array(bad, np.float32)[None]
+    dropped = np.where(np.isfinite(flo) & (np.abs(flo) < 1e8), flo,
+                       np.float32(1e9)).astype(np.float32)
+    stats = torch.zeros(2, dtype=torch.int64, device=cuda_device)
+    out, norm = kernels.fwarp_splat(img, torch.from_numpy(flo).to(cuda_device),
+                                    route_stats=stats)
+    pout, pnorm = warp.fwarp_splat_plain(
+        img, torch.from_numpy(dropped).to(cuda_device))
+    torch.cuda.synchronize()
+    assert bool(torch.isfinite(out).all()) and bool(torch.isfinite(norm).all())
+    _close_to_plain(out, norm, pout, pnorm)
+    assert int(stats[1]) == 0
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("d,c", [(8, 2), (3, 5), (20, 1)])
 def test_shift_kernel_matches_plain_and_repeats(cuda_device, d, c):
@@ -300,6 +394,9 @@ def test_wrappers_refuse_what_the_kernels_do_not_take(cuda_device):
         kernels.bilinear_gather(img.double(), flo.double(), relative=True)
     with pytest.raises(ValueError):
         kernels.fwarp_splat(img.transpose(2, 3), flo)
+    with pytest.raises(ValueError, match="stats"):
+        kernels.fwarp_splat(img, flo, route_stats=torch.zeros(
+            2, dtype=torch.int32, device=cuda_device))
     with pytest.raises(ValueError):
         kernels.bilinear_gather(img, flo.cpu(), relative=True)
     with pytest.raises(ValueError):

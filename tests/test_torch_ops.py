@@ -204,8 +204,48 @@ def test_bilinear_sample_abs(data, grid):
           jwarp.bilinear_sample_abs(img, coords))
 
 
-def test_fwarp(data):
-    img, flow, _ = data
+def _fwarp_flows(case: str, rng, b: int, h: int, w: int) -> np.ndarray:
+    """Flows [b,h,w,2] (x, y) for the forward splat's cases, NHWC."""
+    if case == "tile_constant":
+        # constant over 8x32 tiles: every tile's targets form one box
+        per_tile = rng.uniform(-6, 6, (b, -(-h // 8), -(-w // 32), 2))
+        flow = np.repeat(np.repeat(per_tile, 8, 1), 32, 2)[:, :h, :w]
+    elif case == "bucket_edges":
+        # integers, -0.0, and values a rounding away from an integer
+        flow = rng.randint(-4, 5, (b, h, w, 2)).astype(np.float32)
+        flow[flow == 0] = -0.0
+        flow[:, ::3, ::2] += np.float32(-1e-8)
+        flow[:, 1::3, ::5] = np.float32(-1e-7)
+        flow[:, 2::3, 1::4] = np.float32(0.9999999)
+    elif case == "noise40":
+        flow = rng.uniform(-40, 40, (b, h, w, 2))
+    else:
+        # "leave_edges": outward motion that carries splats out of the
+        # image past all four edges
+        yy, xx = np.meshgrid(np.linspace(-1, 1, h), np.linspace(-1, 1, w),
+                             indexing="ij")
+        flow = (np.stack([xx, yy], -1)[None] * rng.uniform(6, 14, (b, 1, 1, 2))
+                + rng.uniform(-1.5, 1.5, (b, h, w, 2)))
+    return flow.astype(np.float32)
+
+
+FWARP_CASES = ("tile_constant", "bucket_edges", "noise40", "leave_edges")
+
+
+@pytest.mark.parametrize("case,channels", [("mixed", 5)] + [
+    (case, channels) for case in FWARP_CASES for channels in (1, 2, 3)])
+def test_fwarp(data, case, channels):
+    """The forward splat (plain version) against the JAX package's, on
+    flows of every kind the card's tile design treats apart: mixed
+    magnitudes up to 40 px, tile-constant, bucket edges, i.i.d. noise and
+    motion out of the image."""
+    if case == "mixed":
+        img, flow, _ = data
+    else:
+        rng = np.random.RandomState(10 * FWARP_CASES.index(case) + channels)
+        b, h, w = 2, 20, 72
+        img = rng.uniform(-1, 1, (b, h, w, channels)).astype(np.float32)
+        flow = _fwarp_flows(case, rng, b, h, w)
     out, norm = warp.fwarp(to_t(img), to_t(flow))
     jout, jnorm = jwarp.fwarp(img, flow)
     close(out, jout)
