@@ -3,7 +3,7 @@
 
     python3 chip_smoke.py            # needs one CUDA card
     python3 chip_smoke.py --profile  # adds a torch.profiler breakdown of
-                                     # one window
+                                     # one window and of one train step
     python3 chip_smoke.py --kernels-of DIR   # phases 1-3 only, on the
                                      # checkout of the port at DIR
 
@@ -57,7 +57,34 @@ Phases:
      metrics and PNG bytes identical; windows/s and the share of wall
      time that the engine's stream spent inside dispatched windows (an
      upper bound on the device's busy share); then ``--phase
-     test_custom`` x4 on one small scene.
+     test_custom`` x4 on one small scene;
+  7. training, DeMFI-Net_rb(5,3) at its published setting (batch 2,
+     256x256 patches, N_trn = 5, float32): (a) each backward kernel
+     against its plain vjp (autograd through the plain version) at the
+     train step's shapes, on inputs from the model's own Stage I with the
+     flow head calibrated to about 24 px: the gather's on both C=64
+     bwarp_pairs (one launch), FGAC's absolute sample and the C=3 booster
+     pair, with aten.grid_sampler_2d_backward (on the masked cotangent) as
+     a yardstick; the splat's on the CFR flows, i.i.d. noise flows and
+     non-finite flows (dropped pixels get zero gradients), twice for a
+     bitwise comparison; each with device ms, enqueue us, bound and the
+     plain vjp's ms; (b) one train step on the card against the port on
+     the CPU at 64x64 on the same weights and batch: the loss, and every
+     gradient against the CPU's to the larger of 1e-3 and twice the
+     larger of the CPU's own change under 1e-6 nudges of the batch
+     (sized to the card's departure on the flows:
+     ``demfi_torch.utils.grad_check.gradient_bounds``) and the card's
+     change between two runs; each of five planted faults (a group of
+     warps passing no gradient on) must fail that check; (c) 8 steps on
+     one
+     fixed batch: the loss falls; seconds per step, forward / backward /
+     optimizer device time (CUDA events), peak memory, and exactly 9
+     gather, 9 gather-backward, 2 splat, 2 splat-backward and no stencil
+     launches per step; (d) ``cli --phase train`` on a synthetic tree (4
+     train scenes, phase 6's test scenes for validation and the final
+     evaluation at x2) for 2 epochs, ``--auto_resume`` for a third
+     (starts at epoch 2, Adam's step count carried over), then ``--phase
+     test`` on the trained checkpoint (strict load).
 
 Prints a {"kernels": [...]} line, then as its last line
 {"ok": true, "device": {"platform": "gpu", ...}}. Any failed phase exits
@@ -106,6 +133,19 @@ NONFINITE_VALUES = (np.nan, np.inf, -np.inf, 1e9, -1e9)
 SHIFT_RTOL = 1e-6
 ENQUEUE_CALLS = 100            # calls per host-clock enqueue measurement
 PATH_ATOL = PATH_RTOL = 1e-3   # card vs CPU, whole network in float32
+# phase 7, training: DeMFI-Net_rb(5,3)'s published setting
+TRAIN_B, TRAIN_PS = 2, 256     # batch, patch
+TRAIN_SMALL = 64               # card against CPU
+# backward kernel against its plain vjp: of the largest value per output
+# (the gather's backward adds onto the taps with float atomics, in an
+# order that varies from run to run)
+BWD_RTOL = 1e-5
+STEP_LOSS_RTOL = 1e-4
+OVERFIT_STEPS, OVERFIT_WARMUP = 8, 2
+# per train step: 2 FGAC + 2 feature pairs + 5 booster pairs; 2 CFR splats
+TRAIN_LAUNCHES = {"bilinear_gather": 9, "fwarp_splat": 2, "fwarp_shift": 0,
+                  "bilinear_gather_bwd": 9, "fwarp_splat_bwd": 2}
+CLI_TRAIN_SCENES, CLI_BLUR_FRAMES = 4, 4
 
 
 def fail(msg: str) -> None:
@@ -182,9 +222,11 @@ class DeviceTimer:
         return sum(a.elapsed_time(b) for a, b in pairs) / n
 
 
-def gather_image_pixels(torch, coords, relative: bool, h: int, w: int) -> int:
+def gather_image_pixels(torch, coords, relative: bool, h: int, w: int,
+                        where=None) -> int:
     """Pixels of the image that a bilinear gather at coords [B,2,Hq,Wq]
-    must read: the union, per batch element, of its in-image taps."""
+    must read: the union, per batch element, of its in-image taps (of the
+    query pixels ``where`` [B,Hq,Wq] marks, if given)."""
     b, _, hq, wq = coords.shape
     px, py = coords[:, 0], coords[:, 1]
     if relative:
@@ -199,8 +241,517 @@ def gather_image_pixels(torch, coords, relative: bool, h: int, w: int) -> int:
         for dx in (0, 1):
             xi, yi = x0 + dx, y0 + dy
             valid = (xi >= 0) & (xi < w) & (yi >= 0) & (yi < h)
+            if where is not None:
+                valid &= where
             reached[rows[valid], (yi * w + xi)[valid]] = True
     return int(reached.sum())
+
+
+def gather_bwd_counts(torch, warp, coords, relative: bool, h: int, w: int):
+    """What the gather's vjp at coords [B,2,Hq,Wq] must touch: the
+    unmasked query pixels (the relative mode's 0.999 mask zeroes the
+    rest, grad_out there is not read) and the image pixels their in-image
+    taps reach."""
+    b, _, hq, wq = coords.shape
+    if relative:
+        ones = torch.ones((b, 1, h, w), device=coords.device)
+        live = warp.bilinear_gather_plain(ones, coords, True)[1][:, 0] >= 0.999
+    else:
+        live = torch.ones((b, hq, wq), dtype=torch.bool, device=coords.device)
+    return (int(live.sum()),
+            gather_image_pixels(torch, coords, relative, h, w, where=live))
+
+
+def splat_targets(torch, flo) -> int:
+    """Distinct in-image pixels the forward splat of flo [B,2,H,W] lands
+    on (the splat's vjp reads grad_out and grad_norm there only)."""
+    b, _, h, w = flo.shape
+    r = torch.floor(flo[:, 1]).long() + torch.arange(h, device=flo.device)[
+        None, :, None]
+    c = torch.floor(flo[:, 0]).long() + torch.arange(w, device=flo.device)[
+        None, None]
+    fin = torch.isfinite(flo).all(1)
+    reached = torch.zeros(b, h * w, dtype=torch.bool, device=flo.device)
+    rows = torch.arange(b, device=flo.device)[:, None, None].expand(b, h, w)
+    for dr in (0, 1):
+        for dc in (0, 1):
+            ok = fin & (r + dr >= 0) & (r + dr < h) & (c + dc >= 0) & (c + dc < w)
+            reached[rows[ok], ((r + dr) * w + c + dc)[ok]] = True
+    return int(reached.sum())
+
+
+def device_breakdown(torch, fn, label: str) -> str:
+    """A torch.profiler trace of fn(): wall time, the device's busy share
+    (the union of the intervals of device-side events, profiler
+    bookkeeping rows excluded), device seconds by kind and the top
+    kernels."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    events = [e for e in prof.events()
+              if e.device_type == DeviceType.CUDA and "Buffer" not in e.name]
+    busy_us, end = 0.0, float("-inf")
+    for lo, hi in sorted((e.time_range.start, e.time_range.end)
+                         for e in events):
+        busy_us += max(0.0, hi - max(lo, end))
+        end = max(end, hi)
+    busy = busy_us / 1e6
+    groups = {"warp kernels": ("bilinear_gather", "fwarp_splat",
+                               "fwarp_shift"),
+              "copies": ("Memcpy", "Memset"),
+              "convolutions": ("conv", "gemm", "fft", "xmma", "winograd")}
+    share = dict.fromkeys(list(groups) + ["other"], 0.0)
+    for e in events:
+        g = next((k for k, keys in groups.items()
+                  if any(x in e.name for x in keys)), "other")
+        share[g] += e.time_range.elapsed_us() / 1e6
+    table = prof.key_averages().table(sort_by="self_device_time_total",
+                                      row_limit=25)
+    return (f"{label}: wall {wall:.4f} s, device busy {busy:.4f} s "
+            f"({100 * busy / wall:.1f} %, idle {100 * (1 - busy / wall):.1f} "
+            f"%); device seconds by kind "
+            f"{ {k: round(v, 4) for k, v in share.items()} }; top:\n" + table)
+
+
+def train_phase(torch, dev, data_root: Path, tmp: Path,
+                profile: bool = False) -> dict:
+    """Phase 7: the training path at full width. (a) each backward kernel
+    against its plain vjp at the train step's shapes, timed; (b) one train
+    step on the card against the port on the CPU; (c) 8 steps on one fixed
+    batch, timed, with the launches of all five kernels per step; (d)
+    ``cli --phase train``, its resume and a test load of its checkpoint.
+    Returns what the results line reports."""
+    from demfi_torch.checkpoint import load_training_checkpoint
+    from demfi_torch.config import config_rb
+    from demfi_torch.data import imageio
+    from demfi_torch.main import cli
+    from demfi_torch.models import make_model
+    from demfi_torch.ops import cfr_flow_t_align, kernels, warp
+    from demfi_torch.train import create_train_state, make_train_step
+    from demfi_torch.utils.grad_check import (GRAD_TOL, NUDGE, NUDGE_DRAWS,
+                                              PLANTED_FAULTS, gradient_bounds,
+                                              planted_fault, rel_frobenius)
+    from demfi_torch.utils.profiling import calibrate_flow_head
+
+    cfg = config_rb(5, 3, seed=SEED)
+    check((cfg.nf, cfg.N_trn, cfg.batch_size, cfg.patch_size)
+          == (64, 5, TRAIN_B, TRAIN_PS),
+          "the train phase must run DeMFI-Net_rb(5,3)'s published setting")
+    rng = np.random.RandomState(SEED + 5)
+    batch = rng.uniform(-1, 1, (TRAIN_B, 9, TRAIN_PS, TRAIN_PS, 3)).astype(
+        np.float32)
+    t_np = np.array([[0.375], [0.625]], np.float32)
+    frames = torch.from_numpy(batch).to(dev)
+    t_dev = torch.from_numpy(t_np).to(dev)
+    model = make_model(cfg, device=dev)
+    inputs = frames[:, :4].permute(0, 1, 4, 2, 3).contiguous()
+    raw_peak = calibrate_flow_head(model, inputs, FLOW_TARGET_PX)
+
+    # ---- (a) the backward kernels against their plain vjps
+    timer = DeviceTimer(torch)
+    with torch.no_grad():
+        ctx = model.extract(inputs)
+        tt = t_dev.reshape(-1, 1, 1, 1)
+        ft0, ft1 = cfr_flow_t_align(ctx.flow_01, ctx.flow_10, tt)
+    g = torch.Generator(device=dev).manual_seed(SEED)
+
+    def cot(*shape):
+        return torch.randn(shape, device=dev, generator=g)
+
+    bwd_rows = []
+
+    def bwd_row(kernel, name, per_step, fn, plain, library, pairs, nbytes,
+                ops, note=""):
+        """One backward case: pairs() gives (kernel result, plain vjp
+        result) tensors; fn() launches once."""
+        n0 = getattr(kernels, kernel).launches
+        got_want = pairs()
+        torch.cuda.synchronize()
+        check(getattr(kernels, kernel).launches == n0 + 1,
+              f"{name}: {getattr(kernels, kernel).launches - n0} launches, "
+              f"expected 1")
+        errs = [float((a - b).abs().max()) / max(1.0, float(b.abs().max()))
+                for a, b in got_want]
+        finite = all(bool(torch.isfinite(a).all()) for a, _ in got_want)
+        r = dict(kernel=kernel, case=name, per_step=per_step,
+                 ms=timer.ms(fn, 10),
+                 enqueue_us=enqueue_us(torch, fn, ENQUEUE_CALLS),
+                 plain_ms=timer.ms(plain, 3),
+                 library_ms=None if library is None else timer.ms(library, 10),
+                 max_abs_err=max(float((a - b).abs().max())
+                                 for a, b in got_want),
+                 max_rel_err=max(errs), tol=BWD_RTOL, bytes=nbytes,
+                 operations=ops)
+        bound_b = nbytes / HBM_BYTES_PER_S * 1e3
+        bound_o = ops / F32_FLOPS_PER_S * 1e3
+        r.update(bound_ms=max(bound_b, bound_o),
+                 bound_by="bytes" if bound_b >= bound_o else "operations")
+        bwd_rows.append(r)
+        lib = ("none (no single-call equivalent)" if library is None else
+               f"{r['library_ms']:.4f} ms (aten.grid_sampler_2d_backward)")
+        say(f"[7 train a] {name}: max err {max(errs):.3g} of the largest "
+            f"value (tol {BWD_RTOL:.0e}){note} | kernel {r['ms']:.4f} ms "
+            f"device, {r['enqueue_us']:.1f} us enqueue; plain vjp "
+            f"{r['plain_ms']:.4f} ms; library {lib} | bound "
+            f"{r['bound_ms']:.4f} ms by {r['bound_by']} ({nbytes / 1e9:.4f} "
+            f"GB, {ops / 1e9:.4f} G operations; kernel at "
+            f"{r['ms'] / r['bound_ms']:.2f}x)")
+        check(finite, f"{name}: non-finite kernel output")
+        check(max(errs) <= BWD_RTOL, f"{name}: kernel disagrees with its "
+                                     f"plain vjp ({max(errs)} > {BWD_RTOL})")
+        return got_want
+
+    def grid_of(img, coords, relative):
+        h, w = img.shape[2:]
+        gx = coords[:, 0] + (torch.arange(w, device=dev)[None, None]
+                             if relative else 0)
+        gy = coords[:, 1] + (torch.arange(h, device=dev)[None, :, None]
+                             if relative else 0)
+        return torch.stack([gx * (2.0 / (w - 1)) - 1.0,
+                            gy * (2.0 / (h - 1)) - 1.0], dim=-1)
+
+    def gather_case(name, per_step, halves, relative):
+        """halves: [(img, coords, grad_out)], one or two; one launch."""
+        pair = len(halves) == 2
+        nbytes = ops = 0
+        library = []
+        for img, co, go in halves:
+            b, c, h, w = img.shape
+            hq, wq = co.shape[2:]
+            live, reached = gather_bwd_counts(torch, warp, co, relative, h, w)
+            # read: grad_out at the unmasked pixels, the coordinates, the
+            # image pixels their taps reach; written: grad_img in full
+            # (its zero fill), grad_coords
+            nbytes += 4 * (live * c + co.numel() + reached * c
+                           + img.numel() + co.numel())
+            ops += live * (24 * c + 30)
+            grid = grid_of(img, co, relative)
+            masked = (go * (warp.bilinear_gather_plain(
+                torch.ones_like(img[:, :1]), co, True)[1] >= 0.999)
+                if relative else go)
+            library.append(lambda m=masked, i=img, gr=grid:
+                           torch.ops.aten.grid_sampler_2d_backward(
+                               m, i, gr, 0, 0, True, [True, True]))
+        if pair:
+            (a, fa, ga), (a2, fb, gb) = halves
+
+            def fn():
+                return kernels.bilinear_gather_pair_bwd(a, a2, fa, fb, ga, gb,
+                                                        relative)
+
+            def pairs():
+                (gia, gib), (gca, gcb) = fn()
+                pa = warp.bilinear_gather_plain_vjp(a, fa, relative, ga)
+                pb = warp.bilinear_gather_plain_vjp(a2, fb, relative, gb)
+                return [(gia, pa[0]), (gca, pa[1]), (gib, pb[0]),
+                        (gcb, pb[1])]
+        else:
+            (a, fa, ga), = halves
+
+            def fn():
+                return kernels.bilinear_gather_bwd(a, fa, relative, ga)
+
+            def pairs():
+                gi, gc = fn()
+                p = warp.bilinear_gather_plain_vjp(a, fa, relative, ga)
+                return [(gi, p[0]), (gc, p[1])]
+        bwd_row("bilinear_gather_bwd", name, per_step, fn,
+                lambda: [warp.bilinear_gather_plain_vjp(i, co, relative, go)
+                         for i, co, go in halves],
+                lambda: [f() for f in library], pairs, nbytes, ops,
+                "; one launch" if pair else "")
+
+    nb, nf, ps = TRAIN_B, cfg.nf, TRAIN_PS
+    gather_case(f"gather bwd pair rel C={nf} 2x{nb} {ps}x{ps}", 2,
+                [(ctx.f0.contiguous(), ft0, cot(nb, nf, ps, ps)),
+                 (ctx.f1.contiguous(), ft1, cot(nb, nf, ps, ps))], True)
+    gather_case(f"gather bwd abs C={nf} B={nb} (FGAC)", 2,
+                [(ctx.f0.contiguous(), ctx.flow_01.contiguous(),
+                  cot(nb, nf, ps, ps))], False)
+    gather_case(f"gather bwd pair rel C=3 2x{nb}", cfg.N_trn,
+                [(inputs[:, 0].contiguous(), ft0, cot(nb, 3, ps, ps)),
+                 (inputs[:, 1].contiguous(), ft1, cot(nb, 3, ps, ps))], True)
+
+    img = ctx.flow_01.contiguous()
+    flo_smooth = (tt * ctx.flow_01).contiguous()
+    noise = np.random.RandomState(SEED + 6).uniform(
+        -FLOW_TARGET_PX, FLOW_TARGET_PX, tuple(flo_smooth.shape))
+    flo_noise = torch.from_numpy(noise.astype(np.float32)).to(dev)
+    bad = flo_smooth.cpu().numpy().copy()
+    where = np.random.RandomState(SEED + 7).rand(*bad.shape) < NONFINITE_SHARE
+    bad[where] = np.resize(np.array(NONFINITE_VALUES, np.float32),
+                           int(where.sum()))
+    flo_bad = torch.from_numpy(bad).to(dev)
+    with np.errstate(invalid="ignore"):
+        dropped = (~(np.isfinite(bad) & (np.abs(bad) < 1e8))).any(
+            1, keepdims=True)
+    bad = np.where(dropped, np.float32(1e9), bad).astype(np.float32)
+    flo_bad_dropped = torch.from_numpy(bad).to(dev)
+    gout = cot(*img.shape)
+    gnorm = cot(img.shape[0], 1, *img.shape[2:])
+    repeats = {}
+    for name, flo, want_flo, per_step in (
+            ("smooth", flo_smooth, flo_smooth, 2),
+            ("noise", flo_noise, flo_noise, 0),
+            ("non-finite", flo_bad, flo_bad_dropped, 0)):
+        def fn(flo=flo):
+            return kernels.fwarp_splat_bwd(img, flo, gout, gnorm)
+
+        def pairs(flo=flo, want_flo=want_flo):
+            return list(zip(fn(), warp.fwarp_splat_plain_vjp(
+                img, want_flo, gout, gnorm)))
+        b, c, h, w = img.shape
+        reached = splat_targets(torch, flo)
+        live = int(torch.isfinite(flo).all(1).sum())
+        # read: img, flo, grad_out and grad_norm at the targets; written:
+        # grad_img, grad_flo
+        nbytes = 4 * (img.numel() + flo.numel() + reached * (c + 1)
+                      + img.numel() + flo.numel())
+        ops = 4 * live * (4 * c + 10)
+        got_want = bwd_row(
+            "fwarp_splat_bwd", f"splat bwd C=2 B={b} {name}", per_step, fn,
+            lambda f=want_flo: warp.fwarp_splat_plain_vjp(img, f, gout, gnorm),
+            None, pairs, nbytes, ops,
+            "; dropped pixels zero" if name == "non-finite" else "")
+        again = fn()
+        repeats[name] = all(torch.equal(a, g) for (a, _), g in
+                            zip(got_want, again))
+        check(repeats[name], f"splat bwd {name}: two runs differ")
+        bwd_rows[-1]["two_runs_bitwise_equal"] = repeats[name]
+    say(f"[7 train a] splat bwd: two runs bitwise equal on every input: "
+        f"{all(repeats.values())}")
+    del ctx, ft0, ft1, flo_noise, flo_bad, flo_bad_dropped, timer
+    torch.cuda.empty_cache()
+
+    # ---- (b) one full-width train step, card against CPU, 64x64
+    with torch.enable_grad():
+        small = np.random.RandomState(SEED + 8).uniform(
+            -1, 1, (TRAIN_B, 9, TRAIN_SMALL, TRAIN_SMALL, 3)).astype(np.float32)
+        gmodel = make_model(cfg, device=dev)
+        calibrate_flow_head(gmodel, torch.from_numpy(small[:, :4]).to(dev)
+                            .permute(0, 1, 4, 2, 3).contiguous(),
+                            FLOW_TARGET_PX)
+        weights = {k: v.cpu() for k, v in gmodel.state_dict().items()}
+
+        def grads_of(device, batch):
+            """(loss, {name: gradient or None}, the flows [N+1,B,4,H,W])
+            of one train step."""
+            m = make_model(cfg, device=device)
+            m.load_state_dict(weights, strict=True)
+            state = create_train_state(cfg, m)
+            got, flows = {}, []
+            m.register_forward_hook(lambda _m, _in, out: flows.append(
+                out.flow_preds.detach().cpu()))
+
+            def snap(phase):
+                if phase == "backward":
+                    got.update({k: None if p.grad is None
+                                else p.grad.detach().cpu().clone()
+                                for k, p in m.named_parameters()})
+            metrics = make_train_step(cfg)(state, batch, t_np, on_phase=snap)
+            return float(metrics["total_loss"]), got, flows[0]
+        loss_g, grads_g, flows_g = grads_of(dev, small)
+        rerun = grads_of(dev, small)[1]
+        loss_c, grads_c, flows_c = grads_of("cpu", small)
+        try:
+            bound, moves, gap = gradient_bounds(
+                lambda delta: grads_of("cpu", small + delta)[1:], grads_c,
+                flows_c, flows_g, {k: rel_frobenius(rerun[k], g)
+                                   for k, g in grads_g.items()
+                                   if g is not None},
+                (np.random.RandomState(s).randn(*small.shape).astype(
+                    np.float32) for s in range(SEED + 9,
+                                               SEED + 9 + NUDGE_DRAWS)))
+        except RuntimeError as e:
+            fail(str(e))
+        faulty = {}
+        for kind in PLANTED_FAULTS:    # the check must catch each
+            with planted_fault(kind):
+                faulty[kind] = grads_of(dev, small)[1]
+    del gmodel
+    loss_rel = abs(loss_g - loss_c) / abs(loss_c)
+    say(f"[7 train b] one train step at {TRAIN_SMALL}x{TRAIN_SMALL} B={TRAIN_B}"
+        f", full width: loss card {loss_g:.7f} cpu {loss_c:.7f} (rel "
+        f"{loss_rel:.2e}, tol {STEP_LOSS_RTOL:.0e})")
+    check(loss_rel <= STEP_LOSS_RTOL, f"train step loss: card {loss_g} cpu "
+                                      f"{loss_c}")
+    check(all((grads_g[k] is None) == (grads_c[k] is None) for k in grads_c),
+          "card and CPU differ in which parameters have a gradient")
+    say(f"[7 train b] flows, relative Frobenius: card against CPU {gap:.3g}; "
+        f"the CPU under the {len(moves)} counted {NUDGE:.0e} nudges of the "
+        f"batch {', '.join('%.3g' % v for v in moves)} "
+        f"({max(moves) / gap:.2f}x the card's)")
+    worst = (0.0, "", 0.0, 0.0)
+    for k, b in bound.items():
+        err = rel_frobenius(grads_g[k], grads_c[k])
+        check(err <= b, f"train step gradient {k}: card against CPU "
+                        f"{err:.3g} > {b:.3g}")
+        worst = max(worst, (err / b, k, err, b))
+    over = sum(1 for k in bound
+               if rel_frobenius(grads_g[k], grads_c[k]) > GRAD_TOL)
+    say(f"[7 train b] {len(bound)} parameter gradients, card against CPU "
+        f"(relative Frobenius error; bound per tensor the larger of "
+        f"{GRAD_TOL:.0e} and twice the larger of the CPU's change under the "
+        f"nudges and the card's between two runs): worst {worst[1]} "
+        f"{worst[2]:.3g} (bound {worst[3]:.3g}, {worst[0]:.2f} of it); "
+        f"{over} tensors above {GRAD_TOL:.0e}")
+    caught = {}
+    for kind, got in faulty.items():
+        ratios = [rel_frobenius(torch.zeros_like(grads_c[k]) if got[k] is None
+                                else got[k], grads_c[k]) / bound[k]
+                  for k in bound]
+        caught[kind] = (sum(r > 1 for r in ratios), max(ratios))
+        check(caught[kind][0] > 0, f"a planted fault ({kind}) passes the "
+                                   f"gradient check")
+    say(f"[7 train b] planted faults, one group of warps passing no "
+        f"gradient on: tensors beyond their bounds (largest ratio) "
+        + ", ".join(f"{k} {n} ({r:.1f}x)" for k, (n, r) in caught.items()))
+
+    # ---- (c) 8 steps on one fixed full-width batch
+    with torch.enable_grad():
+        state = create_train_state(cfg, model)
+        step = make_train_step(cfg)
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        kernels.reset_launch_counts()
+        losses, secs, split = [], [], []
+        for _ in range(OVERFIT_STEPS):
+            ev = {k: torch.cuda.Event(enable_timing=True)
+                  for k in ("start", "forward", "backward", "optimizer")}
+            t0 = time.perf_counter()
+            ev["start"].record()
+            m = step(state, frames, t_dev,
+                     on_phase=lambda phase: ev[phase].record())
+            losses.append(float(m["total_loss"]))
+            torch.cuda.synchronize()
+            secs.append(time.perf_counter() - t0)
+            split.append([ev["start"].elapsed_time(ev["forward"]),
+                          ev["forward"].elapsed_time(ev["backward"]),
+                          ev["backward"].elapsed_time(ev["optimizer"])])
+        train_counts = kernels.launch_counts()
+        peak = torch.cuda.max_memory_allocated()
+        if profile:
+            say(device_breakdown(torch, lambda: step(state, frames, t_dev),
+                                 "[7 profile] one train step"))
+    want = {k: v * OVERFIT_STEPS for k, v in TRAIN_LAUNCHES.items()}
+    check(train_counts == want, f"train launches {train_counts} != {want} over "
+                                f"{OVERFIT_STEPS} steps")
+    check(all(np.isfinite(losses)), f"train losses {losses}")
+    check(losses[-1] < losses[0], f"the loss did not fall: {losses}")
+    timed = secs[OVERFIT_WARMUP:]
+    s_step = float(np.median(timed))
+    split_ms = np.median(np.array(split[OVERFIT_WARMUP:]), axis=0)
+    say(f"[7 train c] {OVERFIT_STEPS} steps of DeMFI-Net_rb(5,3) at "
+        f"{TRAIN_B}x{TRAIN_PS}x{TRAIN_PS}, float32, one fixed batch, flow head "
+        f"{raw_peak:.2f} -> {FLOW_TARGET_PX} px: losses "
+        f"{['%.5f' % v for v in losses]}; seconds per step "
+        f"{['%.4f' % s for s in secs]}, median after {OVERFIT_WARMUP} warm-up "
+        f"{s_step:.4f} s = {TRAIN_B / s_step:.3f} samples/s; device ms per "
+        f"step (CUDA events, median): forward {split_ms[0]:.2f}, backward "
+        f"{split_ms[1]:.2f}, optimizer {split_ms[2]:.2f}; peak allocated "
+        f"{peak / 2 ** 30:.3f} GiB ({(peak - base) / 2 ** 30:.3f} above the "
+        f"weights); launches per step "
+        f"{ {k: v / OVERFIT_STEPS for k, v in train_counts.items()} }")
+    del state, model, frames, inputs
+    torch.cuda.empty_cache()
+
+    # ---- (d) the CLI: train two epochs, resume a third, load it for test
+    t0 = time.perf_counter()
+    train_root = tmp / "train_data"
+    ids = [17 + 8 * k for k in range(CLI_BLUR_FRAMES)]
+    n_sharp = ids[1] + 2 * (ids[1] - ids[0])       # s2 of the only window
+    for sc in range(CLI_TRAIN_SCENES):
+        sharp_dir = train_root / "train" / f"scene{sc}"
+        blur_dir = train_root / "train_blur" / f"scene{sc}"
+        sharp_dir.mkdir(parents=True)
+        blur_dir.mkdir(parents=True)
+        for i in range(n_sharp):
+            imageio.imwrite(str(sharp_dir / f"{i:05d}.png"), rng.randint(
+                0, 256, (TRAIN_PS, TRAIN_PS, 3)).astype(np.uint8))
+        for i in ids:
+            imageio.imwrite(str(blur_dir / f"{i:05d}.png"), rng.randint(
+                0, 256, (TRAIN_PS, TRAIN_PS, 3)).astype(np.uint8))
+    write_s = time.perf_counter() - t0
+    argv = ["--phase", "train", "--train_data_path", str(train_root),
+            "--test_data_path", str(data_root), "--multiple_MFI", "2",
+            "--batch_size", str(TRAIN_B), "--patch_size", str(TRAIN_PS),
+            "--checkpoint_dir", str(tmp / "train_ckpt"),
+            "--text_dir", str(tmp / "train_txt"),
+            "--log_dir", str(tmp / "train_log"),
+            "--test_img_dir", str(tmp / "train_img"), "--num_thrds", "4",
+            "--freq_display", "2", "--epoch_freq_save", "1",
+            "--seed", str(SEED + 10), "--device", str(dev)]
+    runs = []
+    for extra in (["--epochs", "2"], ["--epochs", "3", "--auto_resume"]):
+        t0 = time.perf_counter()
+        out = io.StringIO()
+        with torch.enable_grad(), contextlib.redirect_stdout(out):
+            res = cli(argv + extra)
+        wall = time.perf_counter() - t0
+        ck = tmp / "train_ckpt" / "DeMFInet_exp1"
+        _, opt, meta = load_training_checkpoint(
+            str(ck / "DeMFInet_exp1_latest.pt"))
+        runs.append(dict(res=res, wall=wall, text=out.getvalue(),
+                         steps=int(opt["state"][0]["step"]),
+                         last_epoch=meta["last_epoch"]))
+    first, second = runs
+    files = sorted(os.listdir(tmp / "train_ckpt" / "DeMFInet_exp1"))
+    want_files = sorted(f"DeMFInet_exp1_{tag}.pt" for tag in
+                        ("latest", "best_PSNR", "epc0", "epc1", "epc2"))
+    per_epoch = CLI_TRAIN_SCENES // TRAIN_B
+    check(first["res"]["start_epoch"] == 0
+          and len(first["res"]["epoch_losses"]) == 2,
+          f"train run: {first['res']}")
+    check(all(np.isfinite(r["res"]["epoch_losses"]).all() for r in runs),
+          "train run: a loss is not finite")
+    check(first["steps"] == 2 * per_epoch and first["last_epoch"] == 1,
+          f"train run: {first['steps']} Adam steps, last epoch "
+          f"{first['last_epoch']}")
+    check(second["res"]["start_epoch"] == 2
+          and second["steps"] == 3 * per_epoch and second["last_epoch"] == 2,
+          f"resumed run: start {second['res']['start_epoch']}, "
+          f"{second['steps']} Adam steps")
+    check("Start epoch 0" not in second["text"], "the resumed run re-ran epoch 0")
+    check(files == want_files, f"checkpoints {files}, expected {want_files}")
+    sheets = os.listdir(tmp / "train_img" / "DeMFInet_exp1" / "while_training")
+    check("trainIdx_00000_Bx20.png" in sheets, f"debug sheets: {sheets}")
+    t0 = time.perf_counter()
+    out = io.StringIO()
+    with contextlib.redirect_stdout(out):
+        test_res = cli(["--phase", "test", "--multiple_MFI", "2",
+                        "--device", str(dev),
+                        "--test_data_path", str(data_root),
+                        "--checkpoint_dir", str(tmp / "train_ckpt"),
+                        "--test_img_dir", str(tmp / "train_img_test")])
+    test_wall = time.perf_counter() - t0
+    check(test_res is not None and bool(np.isfinite(test_res[:5]).all())
+          and "epoch: 2" in out.getvalue(),
+          f"--phase test on the trained checkpoint: {test_res}")
+    say(f"[7 train d] cli --phase train at {TRAIN_B}x{TRAIN_PS}x{TRAIN_PS} on "
+        f"{CLI_TRAIN_SCENES} scenes (written in {write_s:.2f} s): epochs 0-1 in "
+        f"{first['wall']:.2f} s, losses "
+        f"{['%.5f' % v for v in first['res']['epoch_losses']]}, step seconds "
+        f"{['%.4f' % v for v in first['res']['step_seconds']]}; --auto_resume "
+        f"from epoch {second['res']['start_epoch']} with {first['steps']} Adam "
+        f"steps carried ({second['steps']} after it) in {second['wall']:.2f} s;"
+        f" {len(files)} checkpoints; --phase test x2 on the trained latest "
+        f"(strict load) in {test_wall:.2f} s: intp PSNR {test_res[1]:.4f}, "
+        f"deblur PSNR {test_res[3]:.4f}")
+    return dict(bwd_rows=bwd_rows, counts=train_counts, seconds_per_step=s_step,
+                step_seconds=secs, losses=losses,
+                samples_per_s=TRAIN_B / s_step,
+                device_ms_forward_backward_optimizer=split_ms.tolist(),
+                peak_bytes=peak, loss_card_cpu=[loss_g, loss_c],
+                worst_grad=dict(name=worst[1], err=worst[2],
+                                bound=worst[3]),
+                flow_gap_nudges=[gap] + moves, planted_faults=caught,
+                cli_wall=[first["wall"], second["wall"], test_wall])
 
 
 def main() -> int:
@@ -232,6 +783,8 @@ def main() -> int:
     has_pair_entry = hasattr(kernels, "bilinear_gather_pair")
     dev = torch.device("cuda")
     torch.set_grad_enabled(False)
+    # set here, not through demfi_torch.disable_tf32: --kernels-of may
+    # load an earlier checkout that lacks it
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
 
@@ -700,7 +1253,8 @@ def main() -> int:
         check(bool(np.isfinite(arr).all()), f"{f.name}: non-finite values")
     want_counts = {"bilinear_gather": GATHERS_PER_WINDOW * REPEATS,
                    "fwarp_splat": SPLATS_PER_WINDOW * REPEATS,
-                   "fwarp_shift": 0}
+                   "fwarp_shift": 0, "bilinear_gather_bwd": 0,
+                   "fwarp_splat_bwd": 0}
     check(counts == want_counts,
           f"launch counts {counts} != {want_counts} over {REPEATS} windows")
     check(served == {"fwarp_shift": 0,
@@ -716,41 +1270,8 @@ def main() -> int:
         f"launches {counts}; forward warps served by {served}")
 
     if args.profile:
-        from torch.autograd import DeviceType
-        from torch.profiler import ProfilerActivity, profile
-        with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA]) as prof:
-            t0 = time.perf_counter()
-            engine.forward_windows(frames, ts)
-            torch.cuda.synchronize()
-            wall = time.perf_counter() - t0
-        avg = prof.key_averages()
-        # device busy time: the union of the intervals of device-side
-        # events (kernels and copies), profiler bookkeeping rows excluded
-        spans = sorted(
-            (e.time_range.start, e.time_range.end) for e in prof.events()
-            if e.device_type == DeviceType.CUDA and "Buffer" not in e.name)
-        busy_us, end = 0.0, float("-inf")
-        for lo, hi in spans:
-            busy_us += max(0.0, hi - max(lo, end))
-            end = max(end, hi)
-        busy = busy_us / 1e6
-        groups = {"warp kernels": ("bilinear_gather", "fwarp_splat",
-                                   "fwarp_shift"),
-                  "copies": ("Memcpy", "Memset"),
-                  "convolutions": ("conv", "gemm", "fft", "xmma", "winograd")}
-        share = dict.fromkeys(list(groups) + ["other"], 0.0)
-        for e in prof.events():
-            if e.device_type == DeviceType.CUDA and "Buffer" not in e.name:
-                g = next((k for k, keys in groups.items()
-                          if any(x in e.name for x in keys)), "other")
-                share[g] += e.time_range.elapsed_us() / 1e6
-        table = avg.table(sort_by="self_device_time_total", row_limit=25)
-        say(f"[4 profile] one window: wall {wall:.4f} s, device busy "
-            f"{busy:.4f} s ({100 * busy / wall:.1f} %, idle "
-            f"{100 * (1 - busy / wall):.1f} %); device seconds by kind "
-            f"{ {k: round(v, 4) for k, v in share.items()} }; top:\n" +
-            table)
+        say(device_breakdown(torch, lambda: engine.forward_windows(frames, ts),
+                             "[4 profile] one window"))
 
     # ------------------------------------- 5. whole path, card vs CPU
     small = np.random.RandomState(SEED + 1).uniform(
@@ -867,7 +1388,8 @@ def main() -> int:
                   f"eval run {tag}: forward warps served by {served}")
             check(launches == {"bilinear_gather": GATHERS_PER_WINDOW * n_windows,
                                "fwarp_shift": SPLATS_PER_WINDOW * n_windows,
-                               "fwarp_splat": SPLATS_PER_WINDOW * n_windows},
+                               "fwarp_splat": SPLATS_PER_WINDOW * n_windows,
+                               "bilinear_gather_bwd": 0, "fwarp_splat_bwd": 0},
                   f"eval run {tag}: launches {launches}")
             files = {}
             for sc in range(EVAL_SCENES):
@@ -925,14 +1447,18 @@ def main() -> int:
             check(img.shape == (CUSTOM_H, CUSTOM_W, 3), f"{n}: {img.shape}")
         say(f"[6 eval] test_custom x4 at {CUSTOM_H}x{CUSTOM_W}: {len(names)} "
             f"PNGs in clipA_sharply_interpolated_x4, cli wall {wall:.2f} s")
-    ev = runs[1]
-    say(f"[6 eval] x8 DeMFI-Net_rb(5,3) {H}x{W} float32 through "
-        f"demfi_torch.main.cli --phase test, second run: "
-        f"{n_windows / ev['wall']:.4f} windows/s, engine-stream span share "
-        f"{100 * ev['stream_span'] / ev['wall']:.1f} % of wall time (CUDA "
-        f"events around each dispatched window on the engine's stream, "
-        f"launch gaps included: the device's busy share is at most this); "
-        f"two runs identical in metrics and in {len(ev['files'])} PNG files")
+        ev = runs[1]
+        say(f"[6 eval] x8 DeMFI-Net_rb(5,3) {H}x{W} float32 through "
+            f"demfi_torch.main.cli --phase test, second run: "
+            f"{n_windows / ev['wall']:.4f} windows/s, engine-stream span share "
+            f"{100 * ev['stream_span'] / ev['wall']:.1f} % of wall time (CUDA "
+            f"events around each dispatched window on the engine's stream, "
+            f"launch gaps included: the device's busy share is at most this); "
+            f"two runs identical in metrics and in {len(ev['files'])} PNG files")
+
+        # -------------------------------------------------- 7. training
+        # (the evaluation tree of phase 6 serves its validation and test)
+        train = train_phase(torch, dev, tmp / "data", tmp, args.profile)
 
     # ---------------------------------------------------------- results
     def summary(kname, source, replaces, per_window, launches):
@@ -948,6 +1474,7 @@ def main() -> int:
             name=kname, route="cuda", source=source, replaces=replaces,
             launches=launches, launches_per_window=per_window,
             launches_eval_path=eval_launches[kname],
+            launches_train_path=train["counts"][kname],
             max_abs_err=max(r["max_abs_err"] for r in mine),
             ms=per_win("ms"), plain_ms=per_win("plain_ms"),
             bound_ms=per_win("bound_ms"),
@@ -955,6 +1482,32 @@ def main() -> int:
             else "operations",
             library_ms=per_win("library_ms"),
             times_are="per window, summed over its launches",
+            shapes=mine)
+
+    def bwd_summary(kname, source, replaces):
+        """A backward kernel: launches from phase 7(c)'s run of the train
+        path, times per train step summed over its launches."""
+        mine = [r for r in train["bwd_rows"] if r["kernel"] == kname]
+        on_path = [r for r in mine if r["per_step"]]
+        check(train["counts"][kname] > 0,
+              f"{kname}: never launched on the train path")
+
+        def per_step(key):
+            if any(r[key] is None for r in on_path):
+                return None
+            return sum(r[key] * r["per_step"] for r in on_path)
+        return dict(
+            name=kname, route="cuda", source=source, replaces=replaces,
+            launches=train["counts"][kname],
+            launches_per_step=train["counts"][kname] // OVERFIT_STEPS,
+            max_abs_err=max(r["max_abs_err"] for r in mine),
+            max_rel_err=max(r["max_rel_err"] for r in mine),
+            ms=per_step("ms"), plain_ms=per_step("plain_ms"),
+            bound_ms=per_step("bound_ms"),
+            bound_by="bytes" if all(r["bound_by"] == "bytes" for r in on_path)
+            else "operations",
+            library_ms=per_step("library_ms"),
+            times_are="per train step, summed over its launches",
             shapes=mine)
 
     say(json.dumps({"kernels": [
@@ -967,6 +1520,13 @@ def main() -> int:
         summary("fwarp_shift", "demfi_torch/csrc/fwarp_shift.cu",
                 "demfi_tpu/ops/pallas_kernels.py:479", SPLATS_PER_WINDOW,
                 eval_launches["fwarp_shift"]),
+        bwd_summary("bilinear_gather_bwd",
+                    "demfi_torch/csrc/bilinear_gather_bwd.cu",
+                    "demfi_tpu/ops/warp.py:448 (no Pallas kernel: the vjp of "
+                    "_bwarp_xla, and of _bilinear_abs_xla :494)"),
+        bwd_summary("fwarp_splat_bwd", "demfi_torch/csrc/fwarp_splat_bwd.cu",
+                    "demfi_tpu/ops/warp.py:549 (no Pallas kernel: the vjp of "
+                    "_fwarp_xla)"),
     ], "card": card, "splat_tile_spread": tile_spread,
         "windows_per_s": 1 / s_win,
         "frames_per_s": (M - 1) / s_win, "window_seconds": secs,
@@ -977,7 +1537,9 @@ def main() -> int:
             "cli_wall")},
         "eval_windows": n_windows,
         "eval_windows_per_s": n_windows / ev["wall"],
-        "eval_engine_stream_span_share": ev["stream_span"] / ev["wall"]}))
+        "eval_engine_stream_span_share": ev["stream_span"] / ev["wall"],
+        "train": {k: v for k, v in train.items()
+                  if k not in ("bwd_rows", "counts")}}))
     say(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

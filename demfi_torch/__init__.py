@@ -3,9 +3,9 @@
 A port of ``demfi_tpu`` (JAX/Flax on a TPU). Convolutions, the ConvGRU
 and the elementwise code are plain PyTorch; the two irregular-memory warp
 ops (the bilinear gather behind ``bwarp`` / FGAC's sampler, and the
-forward splat behind CFR) are CUDA kernels written by hand
-(``demfi_torch/csrc``), each with a plain PyTorch version beside it
-(``demfi_torch/ops/warp.py``) that the CPU takes.
+forward splat behind CFR) and their gradients are CUDA kernels written
+by hand (``demfi_torch/csrc``), each with a plain PyTorch version beside
+it (``demfi_torch/ops/warp.py``) that the CPU takes.
 
 Layout conventions:
   - modules work on NCHW tensors: images / features [B, C, H, W];
@@ -16,10 +16,12 @@ Layout conventions:
   - the inference engine's public surface keeps the JAX package's
     layout: numpy frames [N, 4, H, W, 3] in, NHWC numpy results out.
 
-Entry points (the inference engine, and ``python -m demfi_torch.main``
-for the reference's ``test`` / ``test_custom`` phases) run on ``cuda``
-unless the caller passes ``device="cpu"`` / ``--device cpu``; with no
-GPU present and no explicit CPU request they raise.
+Entry points (the inference engine, the train step, and ``python -m
+demfi_torch.main`` for the reference's ``train`` / ``test`` /
+``test_custom`` phases) run on ``cuda`` unless the caller passes
+``device="cpu"`` / ``--device cpu``; with no GPU present and no explicit
+CPU request they raise. On the card the warp kernels' gradients are
+kernels too (``demfi_torch/ops/kernels.py``).
 """
 from __future__ import annotations
 
@@ -44,6 +46,16 @@ def resolve_device(device: Optional[Union[str, torch.device]] = None
     if device.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError(f"device {device} requested but CUDA is absent")
     return device
+
+
+def disable_tf32() -> None:
+    """Float32 parity on the card: turn TF32 off for cuDNN convolutions and
+    cuBLAS matmuls, process-wide (cuDNN's float32 convolutions otherwise
+    run in TF32; the counterpart of the JAX model's
+    ``Precision.HIGHEST``). The inference engine and the train step both
+    call it."""
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
 
 
 def nhwc_to_nchw(x: torch.Tensor) -> torch.Tensor:

@@ -77,29 +77,62 @@ def flax_params_to_state_dict(variables: Mapping[str, Any]
     return out
 
 
-def load_checkpoint(path: str) -> Tuple[Dict[str, torch.Tensor],
+def load_training_checkpoint(path: str
+                             ) -> Tuple[Dict[str, torch.Tensor],
+                                        Optional[Dict[str, Any]],
                                         Dict[str, Any]]:
-    """Load a ``.pt`` checkpoint -> (state_dict, metadata).
+    """Load a ``.pt`` checkpoint -> (state_dict, optimizer state or None,
+    metadata).
 
     Accepts the reference's combined training checkpoint (a dict with
-    ``state_dict_Model`` beside ``last_epoch``, ``best_PSNR``, the
-    metrics and the optimizer's and scheduler's state) or a bare state
+    ``state_dict_Model`` beside ``state_dict_Optimizer``, ``last_epoch``,
+    ``best_PSNR``, the metrics and the scheduler's state) or a bare state
     dict. The file is unpickled in full (the combined layout holds plain
     Python and numpy values): load only checkpoints you trust."""
     ckpt = torch.load(path, map_location="cpu", weights_only=False)
     if "state_dict_Model" in ckpt:
         meta = {k: v for k, v in ckpt.items()
                 if not k.startswith("state_dict")}
-        return ckpt["state_dict_Model"], meta
-    return ckpt, {}
+        return (ckpt["state_dict_Model"], ckpt.get("state_dict_Optimizer"),
+                meta)
+    return ckpt, None, {}
+
+
+def load_checkpoint(path: str) -> Tuple[Dict[str, torch.Tensor],
+                                        Dict[str, Any]]:
+    """Load a ``.pt`` checkpoint -> (state_dict, metadata); see
+    :func:`load_training_checkpoint`."""
+    state_dict, _, meta = load_training_checkpoint(path)
+    return state_dict, meta
+
+
+def to_cpu(obj: Any) -> Any:
+    """A copy of a state dict (nested dicts, lists and tuples of tensors
+    and plain values) with every tensor detached and copied to the CPU:
+    a snapshot that later updates of the live tensors do not reach."""
+    if isinstance(obj, torch.Tensor):
+        return obj.detach().to("cpu", copy=True)
+    if isinstance(obj, dict):
+        return {k: to_cpu(v) for k, v in obj.items()}
+    if isinstance(obj, (list, tuple)):
+        return type(obj)(to_cpu(v) for v in obj)
+    return obj
 
 
 def save_checkpoint(path: str, state_dict: Mapping[str, torch.Tensor],
-                    meta: Optional[Mapping[str, Any]] = None) -> None:
-    """Write the combined layout: ``state_dict_Model`` (CPU tensors)
-    beside the metadata entries."""
+                    meta: Optional[Mapping[str, Any]] = None,
+                    optimizer_state: Optional[Mapping[str, Any]] = None
+                    ) -> None:
+    """Write the combined layout: ``state_dict_Model`` (CPU tensors),
+    ``state_dict_Optimizer`` where given, beside the metadata entries.
+    The file is written under a temporary name and renamed, so a reader
+    never sees half of it."""
     ckpt: Dict[str, Any] = dict(meta or {})
     ckpt["state_dict_Model"] = {k: v.detach().cpu()
                                 for k, v in state_dict.items()}
+    if optimizer_state is not None:
+        ckpt["state_dict_Optimizer"] = to_cpu(optimizer_state)
     os.makedirs(os.path.dirname(os.path.abspath(path)), exist_ok=True)
-    torch.save(ckpt, path)
+    tmp = f"{path}.tmp{os.getpid()}"
+    torch.save(ckpt, tmp)
+    os.replace(tmp, path)

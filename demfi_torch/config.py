@@ -1,15 +1,15 @@
-"""Configuration: the architecture, evaluation and experiment fields of
-DeMFI.
+"""Configuration: the architecture, training, evaluation and experiment
+fields of DeMFI.
 
-The port's own copy of the fields its inference and evaluation paths
-read (the training, dataset-sampling and multi-device fields wait for
-later slices). What the JAX package reads from the environment is an
-explicit field here (``device``, ``fwarp_shift_d``).
+The port's own copy of the fields its training, inference and
+evaluation paths read (the multi-device fields wait for the DDP slice).
+What the JAX package reads from the environment is an explicit field
+here (``device``, ``fwarp_shift_d``).
 """
 from __future__ import annotations
 
 import dataclasses
-from typing import Optional, Tuple
+from typing import Optional, Sequence, Tuple
 
 
 @dataclasses.dataclass
@@ -19,21 +19,40 @@ class DeMFIConfig:
     exp_num: int = 1
     phase: str = "test"  # train | test | test_custom
     test_epoch_point: Optional[int] = None
+    fine_tuning: bool = False
+    fine_tuning_epoch_point: Optional[int] = None
     test_img_dir: str = "./test_img_dir"
     text_dir: str = "./text_dir"
     checkpoint_dir: str = "./checkpoint_dir"
     log_dir: str = "./log_dir"
 
     # ---- datasets ----
+    train_data_path: str = "./Datasets/Adobe_240fps_blur"
     test_data_path: str = "./Datasets/Adobe_240fps_blur"
     t_step_size: int = 8      # K in the paper
+    t_sampling_num: int = 8
     custom_path: str = "./custom_path"
 
-    # ---- fields of the training schedule that evaluation reads ----
-    epochs: int = 7500        # names the output directory of a final test
-    patch_size: int = 256     # centre crop of a validation pass
+    # ---- training ----
+    epochs: int = 7500        # also names the output directory of a test
+    freq_display: int = 25
+    epoch_freq_display: int = 50
+    epoch_freq_save: int = 50
+    init_lr: float = 1e-4
+    lr_type: str = "stair_decay"   # stair_decay | linear_decay | no_decay
+    lr_dec_fac: float = 0.5
+    lr_milestones: Sequence[int] = (3750, 6250, 7250)
+    lr_dec_start: int = 0
+    batch_size: int = 2
+    weight_decay: float = 0.0
+    need_patch: bool = True
+    patch_size: int = 256     # train crop; centre crop of a validation pass
+    num_thrds: int = 8
     loss_type: str = "L1"     # L1 | MSE | L1_Charbonnier_loss
+    rec_D1_lambda: float = 1.0
     rec_D2_lambda: float = 1.0
+    # resume from the latest checkpoint when one exists
+    auto_resume: bool = False
 
     # ---- architecture ----
     img_ch: int = 3
@@ -78,6 +97,21 @@ class DeMFIConfig:
     @property
     def model_dir(self) -> str:
         return f"{self.net_type}_exp{self.exp_num}"
+
+    def lr_at_epoch(self, epoch: int) -> float:
+        """Epoch-indexed schedule. stair_decay: MultiStepLR (the lr is
+        multiplied by lr_dec_fac at each milestone reached); linear_decay:
+        init_lr until lr_dec_start, then a ramp to zero at ``epochs``;
+        no_decay: init_lr."""
+        if self.lr_type == "no_decay":
+            return self.init_lr
+        if self.lr_type == "linear_decay":
+            if epoch < self.lr_dec_start:
+                return self.init_lr
+            return self.init_lr * (self.epochs - epoch) / max(
+                self.epochs - self.lr_dec_start, 1)
+        n = sum(1 for m in self.lr_milestones if m <= epoch)
+        return self.init_lr * (self.lr_dec_fac ** n)
 
 
 def config_bs(**kw) -> DeMFIConfig:

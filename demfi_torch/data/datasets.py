@@ -1,18 +1,19 @@
-"""Datasets of the evaluation paths: GT eval windows and custom scenes.
+"""Datasets: Adobe240-style blur training data, GT eval windows and
+custom scenes.
 
 Blur frame names encode absolute sharp frame indices (stride
 ``t_step_size``, e.g. 00017.png, 00025.png ...); samples are 4-frame
 sliding windows that skip each scene's first and last blur frames.
 Frames are NHWC [T, H, W, C] float32 BGR in [-1, 1], the layout of the
-inference engine's public surface. The training sampler waits for the
-training slice.
+inference engine's public surface and of the train step's batches.
 """
 from __future__ import annotations
 
 import dataclasses
 import glob
 import os
-from typing import List, Optional
+import random
+from typing import List, Optional, Tuple
 
 import numpy as np
 
@@ -43,6 +44,92 @@ def _normalize(frames_thwc_uint8: np.ndarray, channels: int = 3) -> np.ndarray:
                                    [1, 1, 1, 3]) / 255.0,
                     axis=-1, keepdims=True) + 16.0)
     return (f / 255.0 - 0.5) * 2.0
+
+
+# ===================================================================== train
+@dataclasses.dataclass
+class TrainSample:
+    frames: np.ndarray  # [9, ps, ps, 3]: B0,B1,B-1,B2,St,S0,S1,S-1,S2
+    t_value: np.ndarray  # [1] float32
+
+
+def build_train_index(train_data_path: str
+                      ) -> Tuple[List[List[str]], List[List[str]]]:
+    """(sharp scenes, blur scenes) path lists: ``train/<scene>/`` and
+    ``train_blur/<scene>/``."""
+    return (_list_scene_frames(os.path.join(train_data_path, "train")),
+            _list_scene_frames(os.path.join(train_data_path, "train_blur")))
+
+
+class AdobeTrainDataset:
+    """Random-window training sampler.
+
+    Per sample: a random 4-blur-frame window, a random t index in
+    {1..K-1}/K, the matching sharp GT frames, a random patch_size^2
+    crop, horizontal flip and rot90, and a random temporal reversal with
+    t -> 1 - t. The draws from ``rng`` come in the JAX package's order,
+    so one seed gives the same sample in both.
+    """
+
+    def __init__(self, train_data_path: str, t_sampling_num: int = 8,
+                 patch_size: int = 256, need_patch: bool = True):
+        # the t grid uses t_sampling_num; the blur-frame interval itself
+        # is derived from the file names
+        self.sharp, self.blur = build_train_index(train_data_path)
+        if not self.sharp:
+            raise RuntimeError(f"no scenes under {train_data_path}")
+        self.k = t_sampling_num
+        self.patch_size = patch_size
+        self.need_patch = need_patch
+        self.t_grid = np.linspace(1 / self.k, 1 - 1 / self.k, self.k - 1)
+
+    def __len__(self) -> int:
+        return len(self.sharp)
+
+    def sample(self, idx: int, rng: random.Random) -> TrainSample:
+        sharp = self.sharp[idx]
+        blur = self.blur[idx]
+
+        first = rng.randint(1, len(blur) - 3)
+        inter = rng.randint(1, self.k - 1)
+        abs_idx = int(os.path.basename(blur[first])[:-4])
+        interval = int(os.path.basename(blur[first + 1])[:-4]) - abs_idx
+
+        st = int(abs_idx + inter * interval / self.k - 1)
+        t_value = float(self.t_grid[inter - 1])
+        s0 = abs_idx - 1
+        s1 = abs_idx + interval - 1
+        sm1 = s0 - interval
+        s2 = s1 + interval
+
+        if rng.randint(0, 1):
+            blur_ids = [first, first + 1, first - 1, first + 2]
+            sharp_ids = [st, s0, s1, sm1, s2]
+        else:  # temporal reversal
+            blur_ids = [first + 1, first, first + 2, first - 1]
+            sharp_ids = [st, s1, s0, s2, sm1]
+            t_value = 1.0 - t_value
+
+        imgs = [_imread(blur[i]) for i in blur_ids]
+        imgs += [_imread(sharp[i]) for i in sharp_ids]
+        frames = np.stack(imgs, axis=0)  # [9,H,W,3]
+
+        ih, iw = frames.shape[1:3]
+        if self.need_patch:
+            ps = self.patch_size
+            ix = rng.randrange(0, iw - ps + 1)
+            iy = rng.randrange(0, ih - ps + 1)
+        else:
+            ps, ix, iy = min(ih, iw), 0, 0
+        flip = rng.random() < 0.5
+        rot = rng.randint(0, 3)
+
+        frames = frames[:, iy:iy + ps, ix:ix + ps]
+        if flip:
+            frames = frames[:, :, ::-1]
+        frames = np.rot90(frames, rot, (1, 2))
+        return TrainSample(_normalize(np.ascontiguousarray(frames)),
+                           np.array([t_value], np.float32))
 
 
 # ====================================================================== eval

@@ -22,10 +22,8 @@ The public surface keeps the JAX engine's layout: frames come in as numpy
 Inside, the model works on NCHW tensors.
 
 Float32 parity: the engine turns TF32 off for cuDNN convolutions and
-cuBLAS matmuls (``torch.backends.cudnn.allow_tf32`` and
-``torch.backends.cuda.matmul.allow_tf32``), process-wide. cuDNN's
-float32 convolutions otherwise run in TF32; this is the counterpart of
-the JAX model's ``Precision.HIGHEST``.
+cuBLAS matmuls, process-wide (:func:`demfi_torch.disable_tf32`, which
+the train step calls too).
 """
 from __future__ import annotations
 
@@ -35,7 +33,7 @@ from typing import List, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
-from demfi_torch import nchw_to_nhwc, resolve_device
+from demfi_torch import disable_tf32, nchw_to_nhwc, resolve_device
 from demfi_torch.models.demfi import DeMFINet
 
 # Device bytes per pixel-instant of a float32 window batch: the peak
@@ -170,8 +168,7 @@ class InferenceEngine:
         if fetch not in ("full", "images"):
             raise ValueError(f"fetch must be 'full' or 'images', got {fetch!r}")
         self.device = resolve_device(device)
-        torch.backends.cudnn.allow_tf32 = False
-        torch.backends.cuda.matmul.allow_tf32 = False
+        disable_tf32()
         self.model = model.to(self.device).eval()
         self.num_update = num_update
         self.t_chunk = t_chunk

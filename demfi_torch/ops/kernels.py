@@ -1,6 +1,6 @@
 """Hand-written CUDA kernels for Hopper (sm_90a), their build and wrappers.
 
-Three kernels carry the warp ops:
+Three kernels carry the warp ops forward:
 
   ``bilinear_gather`` (csrc/bilinear_gather.cu) replaces the TPU kernel
       ``_gather_kernel`` / ``bilinear_gather_tpu``
@@ -51,6 +51,27 @@ splat, given the same flag, does the work or returns at once. Each adds
 since under the guard a launch does not say which kernel served the
 call.
 
+Two more carry their gradients. The JAX package's fast paths are
+``jax.custom_vjp``s whose backward recomputes through the exact XLA op
+(demfi_tpu/ops/warp.py:177-295), so these have no Pallas counterpart:
+
+  ``bilinear_gather_bwd`` (csrc/bilinear_gather_bwd.cu): the vjp of the
+      gather (of ``_bwarp_xla`` and ``_bilinear_abs_xla``,
+      demfi_tpu/ops/warp.py:448, :494), one or two halves a launch;
+      float atomics onto the taps for the image's gradient, a per-pixel
+      sum over channels for the coordinates'.
+  ``fwarp_splat_bwd`` (csrc/fwarp_splat_bwd.cu): the vjp of the forward
+      warp (of ``_fwarp_xla``, :549), whichever kernel served the
+      forward: a gather over each source pixel's four corners, no
+      atomics, the same bits every run.
+
+Autograd: on the card, a call whose inputs require grad (with grad
+enabled) goes through a ``torch.autograd.Function`` that saves only its
+inputs and whose backward launches the backward kernel on the current
+stream, or raises; nothing falls back to a plain version. A call under
+``torch.no_grad()`` launches the forward kernel directly, as before. On
+the CPU the plain versions run under ordinary autograd.
+
 Build: ``nvcc -gencode arch=compute_90a,code=sm_90a -O3 -shared`` of each
 source into its own shared library with a plain C interface (one nvcc
 per source, all started together), loaded with ctypes. The build runs at
@@ -83,7 +104,9 @@ CSRC = _PKG / "csrc"
 BUILD_ROOT = _PKG / "_build"
 SOURCES = {"bilinear_gather": "bilinear_gather.cu",
            "fwarp_splat": "fwarp_splat.cu",
-           "fwarp_shift": "fwarp_shift.cu"}
+           "fwarp_shift": "fwarp_shift.cu",
+           "bilinear_gather_bwd": "bilinear_gather_bwd.cu",
+           "fwarp_splat_bwd": "fwarp_splat_bwd.cu"}
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC"]
 
@@ -158,6 +181,15 @@ def _bind(name: str, lib: ctypes.CDLL) -> ctypes.CDLL:
         fn = lib.demfi_fwarp_splat_f32
         # img, flo, out, norm, flag, served, route_stats, B, C, H, W, stream
         fn.argtypes = [vp, vp, vp, vp, vp, vp, vp, i, i, i, i, vp]
+    elif name == "bilinear_gather_bwd":
+        fn = lib.demfi_bilinear_gather_bwd_f32
+        # img_a, img_b, coords_a, coords_b, gout_a, gout_b, grad_img,
+        # grad_coords, n, C, H, W, Hq, Wq, relative, stream
+        fn.argtypes = [vp] * 8 + [i] * 7 + [vp]
+    elif name == "fwarp_splat_bwd":
+        fn = lib.demfi_fwarp_splat_bwd_f32
+        # img, flo, gout, gnorm, grad_img, grad_flo, B, C, H, W, stream
+        fn.argtypes = [vp] * 6 + [i] * 4 + [vp]
     else:
         fn = lib.demfi_fwarp_shift_f32
         # img, flo, out, norm, flag, served, row_stats, B, C, H, W, D, stream
@@ -190,6 +222,14 @@ def _raw_stream(device: torch.device) -> int:
 def _raise_on(name: str, rc: int) -> None:
     if rc != 0:
         raise RuntimeError(f"{name}: CUDA launch failed with cudaError {rc}")
+
+
+def _needs_grad(*tensors: torch.Tensor) -> bool:
+    """A call whose result autograd must be able to differentiate. The
+    others launch their forward kernel without a Function: on an H100
+    host, ``Function.apply`` added about 10 us to a call's enqueue
+    (PERF.md, section 6)."""
+    return torch.is_grad_enabled() and any(t.requires_grad for t in tensors)
 
 
 def _launch_gather(halves, relative: bool, want_ones: bool):
@@ -228,6 +268,113 @@ def _launch_gather(halves, relative: bool, want_ones: bool):
     return out, ones
 
 
+def _launch_gather_bwd(halves, relative: bool):
+    """One launch of the gather's backward kernel on one or two (img,
+    coords, grad_out) halves of equal shapes. Returns (grad_img,
+    grad_coords) over all halves' batch elements, the first half's
+    first."""
+    (img, coords, gout) = halves[0]
+    _check("bilinear_gather_bwd", *(t for half in halves for t in half))
+    n, c, h, w = img.shape
+    if coords.dim() != 4 or coords.shape[:2] != (n, 2):
+        raise ValueError(f"bilinear_gather_bwd: coords {tuple(coords.shape)} "
+                         f"for img {tuple(img.shape)}")
+    hq, wq = coords.shape[2:]
+    if relative and (hq, wq) != (h, w):
+        raise ValueError("bilinear_gather_bwd: relative mode needs the query "
+                         "grid to equal the image grid")
+    if tuple(gout.shape) != (n, c, hq, wq):
+        raise ValueError(f"bilinear_gather_bwd: grad_out {tuple(gout.shape)} "
+                         f"for an output {(n, c, hq, wq)}")
+    if any(i.shape != img.shape or q.shape != coords.shape
+           or g.shape != gout.shape for i, q, g in halves[1:]):
+        raise ValueError("bilinear_gather_bwd: the two halves differ in shape")
+    if h * w >= 2 ** 31 or hq * wq >= 2 ** 31:
+        raise ValueError("bilinear_gather_bwd: a plane of 2^31 elements or "
+                         "more")
+    batch = len(halves) * n
+    grad_img = torch.zeros((batch, c, h, w), dtype=torch.float32,
+                           device=img.device)
+    grad_coords = torch.empty((batch, 2, hq, wq), dtype=torch.float32,
+                              device=img.device)
+    img_b = coords_b = gout_b = None
+    if len(halves) == 2:
+        img_b, coords_b, gout_b = (t.data_ptr() for t in halves[1])
+    rc = build()["bilinear_gather_bwd"].demfi_bilinear_gather_bwd_f32(
+        img.data_ptr(), img_b, coords.data_ptr(), coords_b, gout.data_ptr(),
+        gout_b, grad_img.data_ptr(), grad_coords.data_ptr(),
+        n, c, h, w, hq, wq, int(relative), _raw_stream(img.device))
+    _raise_on("bilinear_gather_bwd", rc)
+    bilinear_gather_bwd.launches += 1
+    return grad_img, grad_coords
+
+
+class _Gather(torch.autograd.Function):
+    """The gather kernel under autograd: its backward is the backward
+    kernel. The in-image weight plane is not differentiable (it feeds
+    the mask, a comparison)."""
+
+    @staticmethod
+    def forward(ctx, img, coords, relative, want_ones):
+        out, ones = _launch_gather([(img, coords)], relative, want_ones)
+        ctx.save_for_backward(img, coords)
+        ctx.relative = relative
+        if ones is not None:
+            ctx.mark_non_differentiable(ones)
+        return out, ones
+
+    @staticmethod
+    def backward(ctx, grad_out, _grad_ones):
+        img, coords = ctx.saved_tensors
+        grad_img, grad_coords = _launch_gather_bwd(
+            [(img, coords, grad_out.contiguous())], ctx.relative)
+        return grad_img, grad_coords, None, None
+
+
+def _launch_gather_pair(img_a, img_b, coords_a, coords_b, relative: bool,
+                        want_ones: bool):
+    """One launch on two halves, split back into ((out_a, out_b),
+    (ones_a, ones_b) or None): views of one allocation."""
+    out, ones = _launch_gather([(img_a, coords_a), (img_b, coords_b)],
+                               relative, want_ones)
+    n = img_a.shape[0]
+    return (out[:n], out[n:]), (None if ones is None
+                                else (ones[:n], ones[n:]))
+
+
+def _launch_gather_pair_bwd(img_a, img_b, coords_a, coords_b, grad_a,
+                            grad_b, relative: bool):
+    """One backward launch on two halves, split back into
+    ((grad_img_a, grad_img_b), (grad_coords_a, grad_coords_b))."""
+    grad_img, grad_coords = _launch_gather_bwd(
+        [(img_a, coords_a, grad_a), (img_b, coords_b, grad_b)], relative)
+    n = img_a.shape[0]
+    return ((grad_img[:n], grad_img[n:]), (grad_coords[:n], grad_coords[n:]))
+
+
+class _GatherPair(torch.autograd.Function):
+    """:func:`bilinear_gather_pair` under autograd: two outputs (views of
+    one allocation), each with its own gradient; one backward launch."""
+
+    @staticmethod
+    def forward(ctx, img_a, img_b, coords_a, coords_b, relative, want_ones):
+        outs, ones = _launch_gather_pair(img_a, img_b, coords_a, coords_b,
+                                         relative, want_ones)
+        ctx.save_for_backward(img_a, img_b, coords_a, coords_b)
+        ctx.relative = relative
+        if ones is None:
+            return outs + (None, None)
+        ctx.mark_non_differentiable(*ones)
+        return outs + ones
+
+    @staticmethod
+    def backward(ctx, grad_a, grad_b, _grad_ones_a, _grad_ones_b):
+        (gi_a, gi_b), (gc_a, gc_b) = _launch_gather_pair_bwd(
+            *ctx.saved_tensors, grad_a.contiguous(), grad_b.contiguous(),
+            ctx.relative)
+        return gi_a, gi_b, gc_a, gc_b, None, None
+
+
 def bilinear_gather(img: torch.Tensor, coords: torch.Tensor, relative: bool,
                     want_ones: bool = True
                     ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
@@ -237,10 +384,14 @@ def bilinear_gather(img: torch.Tensor, coords: torch.Tensor, relative: bool,
     return (out * (ones >= 0.999), ones), ones being the float32 in-image
     weight [B,1,H,W], or None with want_ones=False: the kernel then
     neither allocates nor writes the plane. relative=False (FGAC): sample
-    at the absolute coords on any query grid and return (out, None)."""
+    at the absolute coords on any query grid and return (out, None).
+    Differentiable in img and coords (on the card by
+    :func:`bilinear_gather_bwd`)."""
     if img.device.type == "cpu" and coords.device.type == "cpu":
         out, ones = _warp.bilinear_gather_plain(img, coords, relative)
         return out, ones if want_ones else None
+    if _needs_grad(img, coords):
+        return _Gather.apply(img, coords, relative, want_ones)
     return _launch_gather([(img, coords)], relative, want_ones)
 
 
@@ -254,17 +405,51 @@ def bilinear_gather_pair(img_a: torch.Tensor, img_b: torch.Tensor,
     launch (counted in ``bilinear_gather.launches``), the kernel taking
     both halves' pointers: nothing is concatenated. Returns
     ((out_a, out_b), (ones_a, ones_b) or None); on the card the two are
-    views of one allocation."""
+    views of one allocation. Under autograd each half has its own
+    gradient, and the backward is one launch too."""
     tensors = (img_a, img_b, coords_a, coords_b)
     if all(t.device.type == "cpu" for t in tensors):
         out_a, ones_a = bilinear_gather(img_a, coords_a, relative, want_ones)
         out_b, ones_b = bilinear_gather(img_b, coords_b, relative, want_ones)
         return (out_a, out_b), (None if ones_a is None else (ones_a, ones_b))
-    out, ones = _launch_gather([(img_a, coords_a), (img_b, coords_b)],
-                               relative, want_ones)
-    n = img_a.shape[0]
-    return (out[:n], out[n:]), (None if ones is None
-                                else (ones[:n], ones[n:]))
+    if _needs_grad(*tensors):
+        out_a, out_b, ones_a, ones_b = _GatherPair.apply(
+            img_a, img_b, coords_a, coords_b, relative, want_ones)
+        return (out_a, out_b), (None if ones_a is None else (ones_a, ones_b))
+    return _launch_gather_pair(img_a, img_b, coords_a, coords_b, relative,
+                               want_ones)
+
+
+def bilinear_gather_bwd(img: torch.Tensor, coords: torch.Tensor,
+                        relative: bool, grad_out: torch.Tensor
+                        ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The vjp of :func:`bilinear_gather`'s first output: (grad_img
+    [B,C,H,W], grad_coords [B,2,Hq,Wq]) for the cotangent grad_out
+    [B,C,Hq,Wq]. CPU tensors take
+    :func:`demfi_torch.ops.warp.bilinear_gather_plain_vjp`; CUDA tensors
+    launch the backward kernel (its float atomics onto the taps add in
+    an order that varies from run to run)."""
+    if all(t.device.type == "cpu" for t in (img, coords, grad_out)):
+        return _warp.bilinear_gather_plain_vjp(img, coords, relative,
+                                               grad_out)
+    return _launch_gather_bwd([(img, coords, grad_out)], relative)
+
+
+bilinear_gather_bwd.launches = 0
+
+
+def bilinear_gather_pair_bwd(img_a, img_b, coords_a, coords_b, grad_a,
+                             grad_b, relative: bool):
+    """:func:`bilinear_gather_bwd` of two halves of equal shapes in one
+    launch (counted in ``bilinear_gather_bwd.launches``). Returns
+    ((grad_img_a, grad_img_b), (grad_coords_a, grad_coords_b))."""
+    tensors = (img_a, img_b, coords_a, coords_b, grad_a, grad_b)
+    if all(t.device.type == "cpu" for t in tensors):
+        gi_a, gc_a = bilinear_gather_bwd(img_a, coords_a, relative, grad_a)
+        gi_b, gc_b = bilinear_gather_bwd(img_b, coords_b, relative, grad_b)
+        return (gi_a, gi_b), (gc_a, gc_b)
+    return _launch_gather_pair_bwd(img_a, img_b, coords_a, coords_b, grad_a,
+                                   grad_b, relative)
 
 
 def _served_counter(device: torch.device) -> torch.Tensor:
@@ -335,6 +520,54 @@ def _check_stats(name: str, stats: Optional[torch.Tensor],
                          f"the image's device")
 
 
+def _splat_fwd(img, flo, stats=None):
+    out, norm = _fwarp_outputs(img, torch.zeros)
+    _launch_splat(img, flo, out, norm, None, stats)
+    return out, norm
+
+
+def _shift_fwd(img, flo, d, stats=None):
+    out, norm = _fwarp_outputs(img, torch.empty)
+    _launch_shift(img, flo, d, out, norm, None, stats)
+    return out, norm
+
+
+def _guarded_fwd(img, flo, d):
+    out, norm = _fwarp_outputs(img, torch.empty)
+    flag = torch.empty(1, dtype=torch.int32, device=img.device)
+    _launch_shift(img, flo, d, out, norm, flag)
+    _launch_splat(img, flo, out, norm, flag)
+    return out, norm
+
+
+class _Fwarp(torch.autograd.Function):
+    """A forward warp kernel under autograd (``forward`` one of
+    :func:`_splat_fwd`, :func:`_shift_fwd`, :func:`_guarded_fwd`, given
+    its trailing arguments): whichever kernel served the forward, the
+    backward is the splat's backward kernel, the vjp of the exact splat
+    (as JAX's ``_fwarp_shift_fast_bwd`` takes ``_fwarp_xla``'s). The
+    saved tensors are the img and flo that the forward read."""
+
+    @staticmethod
+    def forward(ctx, img, flo, forward, *args):
+        ctx.save_for_backward(img, flo)
+        ctx.n_args = len(args)
+        return forward(img, flo, *args)
+
+    @staticmethod
+    def backward(ctx, grad_out, grad_norm):
+        img, flo = ctx.saved_tensors
+        grad_img, grad_flo = _launch_splat_bwd(
+            img, flo, grad_out.contiguous(), grad_norm.contiguous())
+        return (grad_img, grad_flo, None) + (None,) * ctx.n_args
+
+
+def _fwarp_call(img, flo, forward, *args):
+    if _needs_grad(img, flo):
+        return _Fwarp.apply(img, flo, forward, *args)
+    return forward(img, flo, *args)
+
+
 def fwarp_splat(img: torch.Tensor, flo: torch.Tensor,
                 route_stats: Optional[torch.Tensor] = None
                 ) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -345,14 +578,13 @@ def fwarp_splat(img: torch.Tensor, flo: torch.Tensor,
     route_stats, for measurement on the card: an int64 [2] tensor to
     which the kernel adds its 32x8 source tiles that went through the
     shared-memory box and those that added straight to global memory.
-    Returns (warped [B,C,H,W], weight norm [B,1,H,W])."""
+    Returns (warped [B,C,H,W], weight norm [B,1,H,W]), differentiable in
+    img and flo (on the card by :func:`fwarp_splat_bwd`)."""
     if img.device.type == "cpu" and flo.device.type == "cpu":
         return _warp.fwarp_splat_plain(img, flo)
     _check_fwarp("fwarp_splat", img, flo)
     _check_stats("fwarp_splat", route_stats, img)
-    out, norm = _fwarp_outputs(img, torch.zeros)
-    _launch_splat(img, flo, out, norm, None, route_stats)
-    return out, norm
+    return _fwarp_call(img, flo, _splat_fwd, route_stats)
 
 
 fwarp_splat.launches = 0
@@ -375,15 +607,15 @@ def fwarp_shift(img: torch.Tensor, flo: torch.Tensor, d: int,
     row_stats, for measurement on the card: an int64 [2] tensor to which
     the kernel adds the source rows its warps tested and the rows their
     vote skipped.
-    Returns (warped [B,C,H,W], weight norm [B,1,H,W])."""
+    Returns (warped [B,C,H,W], weight norm [B,1,H,W]); on the card its
+    gradient is the splat's (:func:`fwarp_splat_bwd`), the window's
+    equal where max|flo| <= d - 1."""
     _check_window("fwarp_shift", d)
     if img.device.type == "cpu" and flo.device.type == "cpu":
         return _warp.fwarp_shift_plain(img, flo, d)
     _check_fwarp("fwarp_shift", img, flo)
     _check_stats("fwarp_shift", row_stats, img)
-    out, norm = _fwarp_outputs(img, torch.empty)
-    _launch_shift(img, flo, d, out, norm, None, row_stats)
-    return out, norm
+    return _fwarp_call(img, flo, _shift_fwd, d, row_stats)
 
 
 fwarp_shift.launches = 0
@@ -393,27 +625,65 @@ def fwarp_guarded(img: torch.Tensor, flo: torch.Tensor, d: int
                   ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Forward warp by the stencil kernel where no |flo| exceeds d - 1,
     by the atomic splat otherwise; both exact, only the first with the
-    same bits every run. Returns (warped, weight norm).
+    same bits every run. Returns (warped, weight norm), whose gradient is
+    the splat's whichever kernel served.
 
     On the card both kernels are launched, on one device flag that the
     stencil's launch computes from flo: the stencil does the work or
     clears the outputs, the splat does the work or returns at once.
     Nothing is copied to the host. On the CPU the flag is read and the
-    one plain version runs."""
+    one plain version runs (autograd through the stencil's plain version
+    equals the splat's gradient inside its window,
+    tests/test_torch_ops.py)."""
     _check_window("fwarp_guarded", d)
     if img.device.type == "cpu" and flo.device.type == "cpu":
         if bool((flo.abs() > float(d - 1)).any()):
             return _warp.fwarp_splat_plain(img, flo)
         return _warp.fwarp_shift_plain(img, flo, d)
     _check_fwarp("fwarp_guarded", img, flo)
-    out, norm = _fwarp_outputs(img, torch.empty)
-    flag = torch.empty(1, dtype=torch.int32, device=img.device)
-    _launch_shift(img, flo, d, out, norm, flag)
-    _launch_splat(img, flo, out, norm, flag)
-    return out, norm
+    return _fwarp_call(img, flo, _guarded_fwd, d)
 
 
-WRAPPERS = (bilinear_gather, fwarp_splat, fwarp_shift)
+def _launch_splat_bwd(img, flo, grad_out, grad_norm):
+    _check_fwarp("fwarp_splat_bwd", img, flo)
+    _check("fwarp_splat_bwd", img, grad_out, grad_norm)
+    b, c, h, w = img.shape
+    if grad_out.shape != img.shape or tuple(grad_norm.shape) != (b, 1, h, w):
+        raise ValueError(f"fwarp_splat_bwd: cotangents "
+                         f"{tuple(grad_out.shape)}, {tuple(grad_norm.shape)} "
+                         f"for img {tuple(img.shape)}")
+    if h * w >= 2 ** 31:
+        raise ValueError("fwarp_splat_bwd: a plane of 2^31 elements or more")
+    grad_img = torch.empty_like(img)
+    grad_flo = torch.empty_like(flo)
+    rc = build()["fwarp_splat_bwd"].demfi_fwarp_splat_bwd_f32(
+        img.data_ptr(), flo.data_ptr(), grad_out.data_ptr(),
+        grad_norm.data_ptr(), grad_img.data_ptr(), grad_flo.data_ptr(),
+        b, c, h, w, _raw_stream(img.device))
+    _raise_on("fwarp_splat_bwd", rc)
+    fwarp_splat_bwd.launches += 1
+    return grad_img, grad_flo
+
+
+def fwarp_splat_bwd(img: torch.Tensor, flo: torch.Tensor,
+                    grad_out: torch.Tensor, grad_norm: torch.Tensor
+                    ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The vjp of the forward warp: (grad_img [B,C,H,W], grad_flo
+    [B,2,H,W]) for the cotangents grad_out [B,C,H,W] and grad_norm
+    [B,1,H,W]. CPU tensors take
+    :func:`demfi_torch.ops.warp.fwarp_splat_plain_vjp`; CUDA tensors
+    launch the backward kernel (no atomics: the same bits every run; a
+    source pixel the forward kernel drops gets zero gradients)."""
+    if all(t.device.type == "cpu" for t in (img, flo, grad_out, grad_norm)):
+        return _warp.fwarp_splat_plain_vjp(img, flo, grad_out, grad_norm)
+    return _launch_splat_bwd(img, flo, grad_out, grad_norm)
+
+
+fwarp_splat_bwd.launches = 0
+
+
+WRAPPERS = (bilinear_gather, fwarp_splat, fwarp_shift, bilinear_gather_bwd,
+            fwarp_splat_bwd)
 
 
 def reset_launch_counts() -> None:
@@ -422,6 +692,8 @@ def reset_launch_counts() -> None:
 
 
 def launch_counts() -> Dict[str, int]:
+    """Launches of each kernel since the last reset, by wrapper name: the
+    three forward kernels and the two backward ones."""
     return {fn.__name__: fn.launches for fn in WRAPPERS}
 
 

@@ -16,11 +16,17 @@
     reference's window form (with its quirks) at rr > 0.
 
 ``bilinear_gather_plain``, ``fwarp_splat_plain`` and
-``fwarp_shift_plain`` are the plain versions of the three CUDA kernels
-(``demfi_torch/ops/kernels.py``): the
-kernel wrappers take them for CPU tensors, the tests hold them against
-the JAX package, and ``chip_smoke.py`` holds each kernel against them on
-the card. The coordinates are computed as ``grid + flow`` in float32, as
+``fwarp_shift_plain`` are the plain versions of the three forward CUDA
+kernels (``demfi_torch/ops/kernels.py``), and
+``bilinear_gather_plain_vjp`` and ``fwarp_splat_plain_vjp`` (autograd
+through the first two) those of the two backward kernels: the kernel
+wrappers take them for CPU tensors, the tests hold them against the JAX
+package (``jax.vjp`` of its exact ops), and ``chip_smoke.py`` holds each
+kernel against them on the card. Gradient semantics, the JAX package's:
+floor has derivative 0 and the fractional part 1; tap validity, the
+0.999 mask and CFR's norm mask are constants (no gradient), so a tap or
+corner outside the image contributes nothing and the mask zeroes both
+the image's and the coordinates' gradient where it is 0. The coordinates are computed as ``grid + flow`` in float32, as
 the JAX package does; ``F.grid_sample`` is not used (its
 normalise/unnormalise round trip differs in the last bits).
 
@@ -136,6 +142,38 @@ def fwarp_splat_plain(img: torch.Tensor, flo: torch.Tensor
                              vals * wgt.reshape(b, 1, h * w))
     acc = acc.reshape(b, c + 1, h, w)
     return acc[:, :c], acc[:, c:]
+
+
+def bilinear_gather_plain_vjp(img: torch.Tensor, coords: torch.Tensor,
+                              relative: bool, grad_out: torch.Tensor
+                              ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Plain version of the ``bilinear_gather_bwd`` kernel: the vjp of
+    :func:`bilinear_gather_plain`'s first output for the cotangent
+    grad_out [B,C,Hq,Wq], by autograd. Returns (grad_img [B,C,H,W],
+    grad_coords [B,2,Hq,Wq])."""
+    with torch.enable_grad():
+        img = img.detach().requires_grad_(True)
+        coords = coords.detach().requires_grad_(True)
+        out, _ = bilinear_gather_plain(img, coords, relative)
+        grad_img, grad_coords = torch.autograd.grad(out, (img, coords),
+                                                    grad_out)
+    return grad_img, grad_coords
+
+
+def fwarp_splat_plain_vjp(img: torch.Tensor, flo: torch.Tensor,
+                          grad_out: torch.Tensor, grad_norm: torch.Tensor
+                          ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Plain version of the ``fwarp_splat_bwd`` kernel: the vjp of
+    :func:`fwarp_splat_plain` for the cotangents grad_out [B,C,H,W] and
+    grad_norm [B,1,H,W], by autograd. Returns (grad_img [B,C,H,W],
+    grad_flo [B,2,H,W])."""
+    with torch.enable_grad():
+        img = img.detach().requires_grad_(True)
+        flo = flo.detach().requires_grad_(True)
+        out, norm = fwarp_splat_plain(img, flo)
+        grad_img, grad_flo = torch.autograd.grad(
+            (out, norm), (img, flo), (grad_out, grad_norm))
+    return grad_img, grad_flo
 
 
 def fwarp_shift_plain(img: torch.Tensor, flo: torch.Tensor, d: int

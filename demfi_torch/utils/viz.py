@@ -2,8 +2,8 @@
 
 Middlebury-colourwheel flow rendering and the ``--visualization_flag``
 component grid (inputs / predictions / GT / flows / occlusions / FGAC
-internals / error maps), on NHWC numpy arrays. The training debug sheet
-waits for the training slice.
+internals / error maps), on NHWC numpy arrays, and the training debug
+sheet.
 """
 from __future__ import annotations
 
@@ -93,6 +93,47 @@ def make_grid(rows: Sequence[Sequence[np.ndarray]]) -> np.ndarray:
         for j, cell in enumerate(row):
             grid[i * h:(i + 1) * h, j * w:(j + 1) * w] = cell
     return grid
+
+
+def _nhwc(x) -> np.ndarray:
+    """A model output (torch, [..., C, H, W]) as numpy [..., H, W, C]."""
+    x = x.detach().float().cpu().numpy()
+    return np.moveaxis(x, -3, -1)
+
+
+def train_debug_sheet(frames_gt: np.ndarray, t_value: np.ndarray,
+                      out) -> np.ndarray:
+    """Per-batch 20-column debug sheet (the reference's get_batch_images):
+    for each sample a row of
+    [ovlp, S0', St', S1', S0, St, S1 (last iteration), St_GT, S0_GT, S1_GT,
+     flow_t0 / flow_t1 colourings (initial, final), occlusion (initial,
+     final), FGAC diff maps, FGAC gates].
+
+    frames_gt: the loader's batch [B, 9, H, W, 3] (numpy, NHWC); out: the
+    model's DeMFIOutputs (torch, NCHW)."""
+    flow_preds = _nhwc(out.flow_preds)
+    occ = _nhwc(out.occ0_preds)
+    ovlp = _nhwc(out.ovlp_b0b1)
+    primes = [_nhwc(v) for v in (out.s0_prime, out.st_prime, out.s1_prime)]
+    has_final = out.s0_final.shape[0] > 0
+    finals = ([_nhwc(v[-1]) for v in (out.s0_final, out.st_final,
+                                      out.s1_final)]
+              if has_final else primes)
+    diffs = [_nhwc(v) for v in out.diff_maps]
+    gates = [_nhwc(v) for v in out.blend_weights]
+    rows = []
+    for i in range(frames_gt.shape[0]):
+        rows.append(
+            [_to_u8(ovlp[i])] + [_to_u8(v[i]) for v in primes]
+            + [_to_u8(v[i]) for v in finals]
+            + [_to_u8(frames_gt[i, k]) for k in (4, 5, 6)]
+            + [flow_to_color(flow_preds[0][i, ..., :2]),
+               flow_to_color(flow_preds[0][i, ..., 2:]),
+               flow_to_color(flow_preds[-1][i, ..., :2]),
+               flow_to_color(flow_preds[-1][i, ..., 2:]),
+               _gray_u8(occ[0][i]), _gray_u8(occ[-1][i])]
+            + [_gray_u8(v[i]) for v in diffs + gates])
+    return make_grid(rows)
 
 
 def _norm_gray_u8(x_hw1: np.ndarray) -> np.ndarray:

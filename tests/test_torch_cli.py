@@ -173,12 +173,15 @@ def test_cli_with_shift_window_and_custom_phase(tree, capsys):
     assert "png for predicted St frame" in capsys.readouterr().out
 
 
-def test_cli_refuses(tree):
+def test_cli_refuses(tree, capsys):
     root, sd = tree
     save_checkpoint(checkpoint_path(DeMFIConfig(
         checkpoint_dir=str(root / "refuse" / "ckpt")), "latest"), sd)
-    with pytest.raises(SystemExit, match="later slice"):
-        cli(["--phase", "train", "--device", "cpu"])
+    # training runs (tests/test_torch_train.py); more than one process
+    # waits for the multi-GPU slice
+    with pytest.raises(SystemExit):
+        cli(["--phase", "train", "--device", "cpu", "--num_processes", "2"])
+    assert "multi-GPU slice" in capsys.readouterr().err
     if not torch.cuda.is_available():
         # no card and no --device cpu: the run fails, it does not carry on
         with pytest.raises(RuntimeError, match="CUDA"):

@@ -11,7 +11,13 @@ order (rounding-level differences, 1e-5 of the largest value); the
 stencil forward warp adds in its plain version's order with
 round-to-nearest arithmetic (atol/rtol 1e-6, and bitwise equal from run
 to run); the whole network, card against CPU, atol/rtol 1e-3 (float32 convolutions of
-cuDNN and of the CPU sum in different orders).
+cuDNN and of the CPU sum in different orders). The backward kernels
+against their plain vjps (autograd through the plain versions): 1e-5 of
+the largest value per output (the gather's backward adds onto the taps
+with float atomics, in an order that varies from run to run; both sum
+in another order than autograd); the splat's backward repeats bitwise.
+Gradients of the whole network, card against CPU: a relative Frobenius
+error of 1e-3 or less per tensor.
 """
 import dataclasses
 
@@ -19,10 +25,12 @@ import numpy as np
 import pytest
 import torch
 
+from demfi_torch import disable_tf32
 from demfi_torch.config import config_rb
 from demfi_torch.infer import InferenceEngine, WindowResult
 from demfi_torch.models import make_model
 from demfi_torch.ops import kernels, warp
+from demfi_torch.utils import grad_check
 from demfi_torch.utils.profiling import calibrate_flow_head
 
 
@@ -431,3 +439,280 @@ def test_engine_card_matches_cpu(cuda_device):
     for f in dataclasses.fields(WindowResult):
         np.testing.assert_allclose(getattr(got, f.name), getattr(want, f.name),
                                    atol=1e-3, rtol=1e-3, err_msg=f.name)
+
+
+# --------------------------------------------------------------- backward
+def _within(got: torch.Tensor, want: torch.Tensor, rel: float = 1e-5) -> None:
+    """Within rel of the largest |value| of want (and finite)."""
+    assert bool(torch.isfinite(got).all())
+    scale = max(1.0, float(want.abs().max()))
+    torch.testing.assert_close(got.cpu(), want.cpu(), atol=rel * scale,
+                               rtol=0)
+
+
+def _bwd_coords(rng, kind, b, h, w, hq, wq, relative):
+    """Coordinates for the gather's backward: "mixed" (motion that leaves
+    every edge, so the relative mask zeroes pixels and taps fall outside),
+    "integer" (whole-pixel values: floor' = 0 at an integer) or "edge"
+    (taps on the image's last rows and columns)."""
+    if kind == "integer":
+        c = np.round(rng.randn(b, 2, hq, wq) * 4)
+        if not relative:
+            c = np.stack([rng.randint(-2, w + 2, (b, hq, wq)),
+                          rng.randint(-2, h + 2, (b, hq, wq))], 1)
+    elif kind == "edge":
+        c = np.stack([rng.uniform(w - 2, w + 0.5, (b, hq, wq)),
+                      rng.uniform(h - 2, h + 0.5, (b, hq, wq))], 1)
+        if relative:
+            c = c - np.stack(np.meshgrid(np.arange(wq), np.arange(hq)), 0)[None]
+    else:
+        c = (rng.randn(b, 2, hq, wq) * 12 if relative else
+             np.stack([rng.uniform(-6, w + 6, (b, hq, wq)),
+                       rng.uniform(-6, h + 6, (b, hq, wq))], 1))
+    return c.astype(np.float32)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", ["mixed", "integer", "edge"])
+@pytest.mark.parametrize("relative", [True, False])
+@pytest.mark.parametrize("c", [1, 2, 3, 64])
+def test_gather_bwd_kernel_matches_plain_vjp(cuda_device, c, relative, kind):
+    """Ragged sizes; masked pixels, taps outside the image, integer and
+    edge coordinates: one launch, within 1e-5 of the plain vjp."""
+    rng = np.random.RandomState(c * 10 + relative)
+    b, h, w = 2, 37, 75
+    hq, wq = (h, w) if relative else (29, 83)
+    img = torch.from_numpy(rng.randn(b, c, h, w).astype(np.float32)).to(
+        cuda_device)
+    coords = torch.from_numpy(_bwd_coords(rng, kind, b, h, w, hq, wq,
+                                          relative)).to(cuda_device)
+    gout = torch.from_numpy(rng.randn(b, c, hq, wq).astype(np.float32)).to(
+        cuda_device)
+    n = kernels.bilinear_gather_bwd.launches
+    gi, gc = kernels.bilinear_gather_bwd(img, coords, relative, gout)
+    torch.cuda.synchronize()
+    assert kernels.bilinear_gather_bwd.launches == n + 1
+    pi, pc = warp.bilinear_gather_plain_vjp(img, coords, relative, gout)
+    _within(gi, pi)
+    _within(gc, pc)
+    if relative and kind == "mixed":
+        _, ones = warp.bilinear_gather_plain(img, coords, True)
+        masked = (ones < 0.999).expand_as(gc)
+        assert bool(masked.any()) and float(gc[masked].abs().max()) == 0.0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("c", [3, 64])
+def test_gather_pair_bwd_is_one_launch(cuda_device, c):
+    """bwarp_pair's backward: one launch over both halves, each half equal
+    to the single backward's result (its coordinates' gradient bitwise,
+    a per-pixel sum in one thread)."""
+    rng = np.random.RandomState(c)
+    b, h, w = 2, 40, 56
+    t = [torch.from_numpy(x.astype(np.float32)).to(cuda_device) for x in (
+        rng.randn(b, c, h, w), rng.randn(b, c, h, w),
+        rng.randn(b, 2, h, w) * 9, rng.randn(b, 2, h, w) * 9,
+        rng.randn(b, c, h, w), rng.randn(b, c, h, w))]
+    a, bb, fa, fb, ga, gb = t
+    n = kernels.bilinear_gather_bwd.launches
+    (gia, gib), (gca, gcb) = kernels.bilinear_gather_pair_bwd(
+        a, bb, fa, fb, ga, gb, True)
+    torch.cuda.synchronize()
+    assert kernels.bilinear_gather_bwd.launches == n + 1
+    for img, co, g, gi, gc in ((a, fa, ga, gia, gca), (bb, fb, gb, gib, gcb)):
+        si, sc = kernels.bilinear_gather_bwd(img, co, True, g)
+        assert torch.equal(gc, sc)
+        _within(gi, si, 1e-6)
+        pi, pc = warp.bilinear_gather_plain_vjp(img, co, True, g)
+        _within(gi, pi)
+        _within(gc, pc)
+
+
+@pytest.mark.cuda
+def test_warps_under_autograd_on_the_card(cuda_device):
+    """bwarp, bwarp_pair, FGAC's absolute sample (also on a 3Hx3W query
+    grid) and the three forward-warp entries under autograd on the card:
+    every input's gradient within 1e-5 of CPU autograd through the plain
+    versions, one backward launch per forward call, and the same splat
+    backward whichever forward kernel served."""
+    rng = np.random.RandomState(5)
+    b, c, h, w = 2, 5, 33, 47
+
+    def pair(*arrays):
+        cpu = [torch.from_numpy(x.astype(np.float32)).requires_grad_()
+               for x in arrays]
+        gpu = [x.detach().to(cuda_device).requires_grad_() for x in cpu]
+        return cpu, gpu
+
+    def check(fn, arrays, n_gather, n_splat):
+        cpu, gpu = pair(*arrays)
+        before = kernels.launch_counts()
+        outs_g = fn(*gpu)
+        outs_c = fn(*cpu)
+        weights = [torch.from_numpy(rng.randn(*o.shape).astype(np.float32))
+                   for o in outs_c]
+        sum((o * wt).sum() for o, wt in zip(outs_c, weights)).backward()
+        sum((o * wt.to(cuda_device)).sum()
+            for o, wt in zip(outs_g, weights)).backward()
+        torch.cuda.synchronize()
+        after = kernels.launch_counts()
+        assert after["bilinear_gather_bwd"] - before["bilinear_gather_bwd"] \
+            == n_gather
+        assert after["fwarp_splat_bwd"] - before["fwarp_splat_bwd"] == n_splat
+        for xc, xg in zip(cpu, gpu):
+            _within(xg.grad, xc.grad)
+
+    img = rng.randn(b, c, h, w)
+    flo = rng.randn(b, 2, h, w) * 6
+    check(lambda x, f: (warp.bwarp(x, f),), (img, flo), 1, 0)
+    check(lambda x, y, f, g: warp.bwarp_pair(x, y, f, g),
+          (img, rng.randn(b, c, h, w), flo, rng.randn(b, 2, h, w) * 6), 1, 0)
+    absc = np.stack([rng.uniform(-4, w + 4, (b, h, w)),
+                     rng.uniform(-4, h + 4, (b, h, w))], 1)
+    check(lambda x, f: (warp.bilinear_sample_abs(x, f),), (img, absc), 1, 0)
+    check(lambda x, f: (warp.bilinear_sample_abs(
+        x, warp.fgac_window_coords(f, 1)),), (img, absc), 1, 0)
+    small = rng.uniform(-5.5, 5.5, (b, 2, h, w))
+    check(lambda x, f: warp.fwarp(x, f), (img, small), 0, 1)
+    check(lambda x, f: kernels.fwarp_shift(x, f, 8), (img, small), 0, 1)
+    for flows in (small, small * 3):   # the stencil serves, then the splat
+        check(lambda x, f: warp.fwarp(x, f, 8), (img, flows), 0, 1)
+    t = np.full((b, 1, 1, 1), 0.375)
+    check(lambda f0, f1: warp.cfr_flow_t_align(
+        f0, f1, torch.as_tensor(t, dtype=torch.float32, device=f0.device)),
+        (small, rng.uniform(-5.5, 5.5, (b, 2, h, w))), 0, 2)
+
+
+def _splat_bwd_inputs(rng, kind, b, c, h, w, dev):
+    img = rng.randn(b, c, h, w).astype(np.float32)
+    if kind == "integer":
+        flo = np.round(rng.randn(b, 2, h, w) * 5).astype(np.float32)
+    else:
+        flo = _splat_flows(rng, kind, b, h, w)
+    gout = rng.randn(b, c, h, w).astype(np.float32)
+    gnorm = rng.randn(b, 1, h, w).astype(np.float32)
+    return [torch.from_numpy(x).to(dev) for x in (img, flo, gout, gnorm)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", ["smooth", "noise", "integer"])
+@pytest.mark.parametrize("c", [1, 2, 3, 64])
+def test_splat_bwd_kernel_matches_plain_vjp_and_repeats(cuda_device, c,
+                                                        kind):
+    """Ragged sizes, corners outside every edge (noise of +-24 px on
+    37x75), integer flows: one launch, within 1e-5 of the plain vjp, and
+    the same bits from two runs."""
+    rng = np.random.RandomState(c * 7 + len(kind))
+    img, flo, gout, gnorm = _splat_bwd_inputs(rng, kind, 2, c, 37, 75,
+                                              cuda_device)
+    n = kernels.fwarp_splat_bwd.launches
+    gi, gf = kernels.fwarp_splat_bwd(img, flo, gout, gnorm)
+    gi2, gf2 = kernels.fwarp_splat_bwd(img, flo, gout, gnorm)
+    torch.cuda.synchronize()
+    assert kernels.fwarp_splat_bwd.launches == n + 2
+    assert torch.equal(gi, gi2) and torch.equal(gf, gf2)
+    pi, pf = warp.fwarp_splat_plain_vjp(img, flo, gout, gnorm)
+    _within(gi, pi)
+    _within(gf, pf)
+
+
+@pytest.mark.cuda
+def test_splat_bwd_kernel_zeroes_non_finite_flows(cuda_device):
+    """A source pixel whose flow is NaN, infinite or +-1e9 (dropped by the
+    forward kernel) gets zero, finite gradients; elsewhere the result is
+    the plain vjp's on the flows with those entries set to 1e9."""
+    rng = np.random.RandomState(11)
+    b, c, h, w = 2, 2, 37, 75
+    img, _, gout, gnorm = _splat_bwd_inputs(rng, "smooth", b, c, h, w,
+                                            cuda_device)
+    flo = _splat_flows(rng, "smooth", b, h, w)
+    bad = [np.nan, np.inf, -np.inf, 1e9, -1e9]
+    flo[0, 0, 3, 5:10] = bad
+    flo[1, 1, 17, 40:45] = bad
+    with np.errstate(invalid="ignore"):
+        hit = (~(np.isfinite(flo) & (np.abs(flo) < 1e8))).any(1, keepdims=True)
+    dropped = np.where(hit, np.float32(1e9), flo).astype(np.float32)
+    gi, gf = kernels.fwarp_splat_bwd(img, torch.from_numpy(flo).to(
+        cuda_device), gout, gnorm)
+    pi, pf = warp.fwarp_splat_plain_vjp(
+        img, torch.from_numpy(dropped).to(cuda_device), gout, gnorm)
+    torch.cuda.synchronize()
+    gone = torch.from_numpy(~hit).to(cuda_device)
+    assert bool(torch.isfinite(gi).all()) and bool(torch.isfinite(gf).all())
+    assert float(gi[~gone.expand_as(gi)].abs().max()) == 0.0
+    assert float(gf[~gone.expand_as(gf)].abs().max()) == 0.0
+    _within(gi, pi)
+    _within(gf, pf)
+
+
+@pytest.mark.cuda
+def test_model_backward_card_matches_cpu(cuda_device):
+    """loss.backward() through DeMFI-Net_rb(2,2) on the card: every warp
+    passes its gradient on (the flow head's gradient is nonzero), with the
+    backward kernels launched (2 FGAC + 2 feature pairs + 2 booster pairs
+    gathers, 2 CFR splats), and every parameter's gradient is the CPU's
+    (plain versions under autograd) within the bound of
+    ``grad_check.gradient_bounds``: the larger of 1e-3 and twice the
+    larger of the CPU's own change under 1e-6 nudges of the frames, drawn
+    until one moves the flows as far as the card's lie from them, and the
+    card's change between two runs. Upstream of the warps the gradient is
+    that ill-conditioned in float32 (a floor or the 0.999 mask flips with
+    rounding; on an H100 the card's forward takes such a flip here, its
+    flows 1.3e-3 from the CPU's). Warps that pass no gradient on fail
+    this bound (tests/test_torch_train.py)."""
+    disable_tf32()
+    cfg = config_rb(2, 2, seed=3)
+    gpu_model = make_model(cfg)
+    rng = np.random.RandomState(6)
+    frames = torch.from_numpy(rng.uniform(-1, 1, (2, 4, 3, 32, 48)).astype(
+        np.float32))
+    directions = [rng.randn(2, 4, 3, 32, 48).astype(np.float32)
+                  for _ in range(2)]
+    gt = torch.from_numpy(rng.uniform(-1, 1, (2, 3, 32, 48)).astype(
+        np.float32))
+    t = torch.tensor([[0.25], [0.625]])
+    calibrate_flow_head(gpu_model, frames.to(cuda_device), 6.0)
+
+    def grads(model, dev, x, flows=None):
+        out = model(x.to(dev), t.to(dev), num_update=2)
+        g = gt.to(dev)
+        ((out.st_prime - g).abs().mean()
+         + (out.st_final - g).abs().mean()).backward()
+        got = {k: None if p.grad is None else p.grad.cpu()
+               for k, p in model.named_parameters()}
+        if flows is not None:
+            flows.append(out.flow_preds.detach().cpu())
+        return got
+
+    def cpu_model():
+        m = make_model(cfg, device="cpu")
+        m.load_state_dict(gpu_model.state_dict())
+        return m
+
+    before = kernels.launch_counts()
+    flows = []
+    got = grads(gpu_model, cuda_device, frames, flows)
+    torch.cuda.synchronize()
+    after = kernels.launch_counts()
+    gpu_model.zero_grad(set_to_none=True)
+    rerun = grads(gpu_model, cuda_device, frames)
+    assert after["bilinear_gather_bwd"] - before["bilinear_gather_bwd"] == 6
+    assert after["fwarp_splat_bwd"] - before["fwarp_splat_bwd"] == 2
+    want = grads(cpu_model(), "cpu", frames, flows)
+
+    def cpu_step(delta):
+        moved = []
+        return grads(cpu_model(), "cpu", frames + torch.from_numpy(delta),
+                     moved), moved[0]
+    bound, _, _ = grad_check.gradient_bounds(
+        cpu_step, want, flows[1], flows[0],
+        {k: grad_check.rel_frobenius(rerun[k], g) for k, g in got.items()
+         if g is not None},
+        directions + [np.random.RandomState(s).randn(2, 4, 3, 32, 48).astype(
+            np.float32) for s in range(6)])
+    head = got["FF_RDB_Module.UPNet.2.weight"]
+    assert float(head[2 * cfg.nf:2 * cfg.nf + 4].abs().max()) > 0
+    # at rr = 0 FGAC reads no source key: conv_source_k has no gradient
+    assert all((got[k] is None) == (want[k] is None) for k in want)
+    for k, b in bound.items():
+        assert grad_check.rel_frobenius(got[k], want[k]) <= b, k

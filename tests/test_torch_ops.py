@@ -7,6 +7,9 @@ transposed at the boundary: JAX is NHWC, the port NCHW.
 
 Tolerances: reshape ops move elements only (atol 0). Warps: atol 1e-5,
 rtol 1e-5 (float32; the sums run in another order in the two packages).
+Gradients: the port's autograd through the plain versions against
+``jax.vjp`` of the JAX package's exact ops, on the same cotangents, at
+atol 1e-5, rtol 1e-5.
 
 The CUDA kernels against their plain versions: tests/test_torch_cuda.py.
 """
@@ -14,6 +17,7 @@ import numpy as np
 import pytest
 import torch
 
+import jax
 import jax.numpy as jnp
 
 from demfi_tpu.ops import reshape as jreshape
@@ -304,3 +308,241 @@ def test_wrappers_refuse_other_devices():
     with pytest.raises(ValueError):
         kernels.fwarp_splat(img, flo)
     assert kernels.launch_counts() == before
+
+
+# ----------------------------------------------------------------- grads
+def _grads_match(port_fn, jax_fn, inputs, seed, atol=ATOL, rtol=RTOL):
+    """Every input's gradient: autograd through port_fn (NCHW tensors)
+    against jax.vjp of jax_fn (NHWC arrays), for one numpy cotangent of
+    each output."""
+    jout, vjp = jax.vjp(jax_fn, *[jnp.asarray(x) for x in inputs])
+    jout = jout if isinstance(jout, tuple) else (jout,)
+    rng = np.random.RandomState(seed)
+    cots = [rng.randn(*o.shape).astype(np.float32) for o in jout]
+    want = vjp(tuple(cots) if len(cots) > 1 else cots[0])
+    xs = [to_t(x).requires_grad_() for x in inputs]
+    outs = port_fn(*xs)
+    outs = outs if isinstance(outs, tuple) else (outs,)
+    sum((o * to_t(c)).sum() for o, c in zip(outs, cots)).backward()
+    for x, w in zip(xs, want):
+        # an input the output does not read: no gradient here, zeros in JAX
+        g = torch.zeros_like(x) if x.grad is None else x.grad
+        close(g, w, atol=atol, rtol=rtol)
+    return xs
+
+
+def _flows(kind: str, rng, b: int, h: int, w: int) -> np.ndarray:
+    """Flows [b,h,w,2]: "mixed" (0 to +-40 px: taps outside the image and
+    pixels the 0.999 mask zeroes), "integer" (whole pixels: floor' = 0 at
+    an integer) or "leave_edges" (motion out of every edge)."""
+    if kind == "integer":
+        return rng.randint(-5, 6, (b, h, w, 2)).astype(np.float32)
+    if kind == "leave_edges":
+        return _fwarp_flows("leave_edges", rng, b, h, w)
+    return (rng.uniform(-1, 1, (b, h, w, 2))
+            * rng.choice([0.0, 0.5, 3.0, 12.0, 40.0], (b, h, w, 1))
+            ).astype(np.float32)
+
+
+GRAD_FLOWS = ("mixed", "integer", "leave_edges")
+
+
+@pytest.mark.parametrize("kind", GRAD_FLOWS)
+def test_bwarp_grads(kind):
+    rng = np.random.RandomState(GRAD_FLOWS.index(kind))
+    img = rng.uniform(-1, 1, (2, 16, 28, 5)).astype(np.float32)
+    flow = _flows(kind, rng, 2, 16, 28)
+    _, f = _grads_match(warp.bwarp, jwarp._bwarp_xla, [img, flow], 1)
+    if kind == "mixed":
+        # the mask zeroes some pixels, and with them the flow's gradient
+        _, ones = warp.bilinear_gather_plain(to_t(img), to_t(flow), True)
+        masked = (ones < 0.999).expand_as(f.grad)
+        assert bool(masked.any()) and float(f.grad[masked].abs().max()) == 0
+
+
+def test_bwarp_pair_grads():
+    a, c, fa, fc = _pair_inputs(3, 7)
+    _grads_match(warp.bwarp_pair,
+                 lambda *x: (jwarp._bwarp_xla(x[0], x[2]),
+                             jwarp._bwarp_xla(x[1], x[3])), [a, c, fa, fc], 2)
+
+
+@pytest.mark.parametrize("grid,integer", [((16, 28), False), ((16, 28), True),
+                                          ((48, 84), False)])
+def test_bilinear_sample_abs_grads(grid, integer):
+    """FGAC's absolute sample: the image grid and the 3Hx3W grid of its
+    rr > 0 form, coordinates in and beyond the image, or whole pixels."""
+    rng = np.random.RandomState(grid[0] + integer)
+    img = rng.uniform(-1, 1, (2, 16, 28, 4)).astype(np.float32)
+    coords = np.stack([rng.uniform(-4, 32, (2,) + grid),
+                       rng.uniform(-4, 20, (2,) + grid)], -1)
+    coords = (np.round(coords) if integer else coords).astype(np.float32)
+    _grads_match(warp.bilinear_sample_abs, jwarp._bilinear_abs_xla,
+                 [img, coords], 3)
+
+
+@pytest.mark.parametrize("case,channels", [(c, 2) for c in FWARP_CASES]
+                         + [("tile_constant", 5)])
+def test_fwarp_grads(case, channels):
+    """The forward splat's vjp (image, flow; both outputs' cotangents)."""
+    rng = np.random.RandomState(FWARP_CASES.index(case) + channels)
+    b, h, w = 2, 16, 40
+    img = rng.uniform(-1, 1, (b, h, w, channels)).astype(np.float32)
+    flow = _fwarp_flows(case, rng, b, h, w)
+    _grads_match(warp.fwarp, jwarp._fwarp_xla, [img, flow], 4)
+
+
+@pytest.mark.parametrize("t", [0.125, 0.625])
+def test_cfr_flow_t_align_grads(t):
+    """CFR: both forward warps, the normalisation and the detached norm
+    mask (zero-norm pixels pass their flow through)."""
+    rng = np.random.RandomState(int(t * 8))
+    f01 = _flows("mixed", rng, 2, 16, 28)
+    f10 = _flows("leave_edges", rng, 2, 16, 28)
+    tt = np.full((2, 1, 1, 1), t, np.float32)
+    _grads_match(lambda a, b: warp.cfr_flow_t_align(a, b, torch.from_numpy(tt)),
+                 lambda a, b: jwarp.cfr_flow_t_align(a, b, tt), [f01, f10], 5)
+
+
+@pytest.mark.parametrize("rr,sr", [(0, 0), (1, 1)])
+def test_fgac_correlate_grads(rr, sr):
+    rng = np.random.RandomState(5 + rr)
+    b, h, w, c = 2, 10, 14, 4
+    ref_k = rng.randn(b, h, w, c).astype(np.float32)
+    src_k = rng.randn(b, h, w, c).astype(np.float32)
+    flow = np.stack([rng.uniform(-4, w + 4, (b, h, w)),
+                     rng.uniform(-4, h + 4, (b, h, w))], -1).astype(np.float32)
+    _grads_match(lambda r, s_, f: warp.fgac_correlate(r, s_, f, rr, sr),
+                 lambda r, s_, f: jwarp.fgac_correlate(r, s_, f, rr, sr),
+                 [ref_k, src_k, flow], 6)
+
+
+def test_plain_vjps_are_the_jax_vjps():
+    """The backward kernels' plain versions, and the backward wrappers on
+    CPU tensors, against jax.vjp of _bwarp_xla, _bilinear_abs_xla and
+    _fwarp_xla; nothing is launched."""
+    rng = np.random.RandomState(8)
+    img = rng.uniform(-1, 1, (2, 12, 20, 3)).astype(np.float32)
+    flow = _flows("mixed", rng, 2, 12, 20)
+    gout = rng.randn(2, 12, 20, 3).astype(np.float32)
+    gnorm = rng.randn(2, 12, 20, 1).astype(np.float32)
+    before = kernels.launch_counts()
+    for relative, jfn in ((True, jwarp._bwarp_xla),
+                          (False, jwarp._bilinear_abs_xla)):
+        want = jax.vjp(jfn, img, flow)[1](gout)
+        for fn in (warp.bilinear_gather_plain_vjp, kernels.bilinear_gather_bwd):
+            gi, gc = fn(to_t(img), to_t(flow), relative, to_t(gout))
+            close(gi, want[0])
+            close(gc, want[1])
+    (gia, gib), (gca, gcb) = kernels.bilinear_gather_pair_bwd(
+        to_t(img), to_t(img), to_t(flow), to_t(flow), to_t(gout), to_t(gout),
+        True)
+    want = jax.vjp(jwarp._bwarp_xla, img, flow)[1](gout)
+    for gi, gc in ((gia, gca), (gib, gcb)):
+        close(gi, want[0])
+        close(gc, want[1])
+    want = jax.vjp(jwarp._fwarp_xla, img, flow)[1]((gout, gnorm))
+    for fn in (warp.fwarp_splat_plain_vjp, kernels.fwarp_splat_bwd):
+        gi, gf = fn(to_t(img), to_t(flow), to_t(gout), to_t(gnorm))
+        close(gi, want[0])
+        close(gf, want[1])
+    assert kernels.launch_counts() == before
+
+
+@pytest.mark.parametrize("peak", [3.0, 6.9])
+def test_cpu_guarded_gradient_is_the_splats(peak):
+    """Inside its window (max|flo| <= d - 1) the CPU's guarded forward
+    warp runs the stencil's plain version; autograd through it gives the
+    splat's gradient (which the card's backward kernel computes)."""
+    rng = np.random.RandomState(int(peak))
+    img = rng.uniform(-1, 1, (2, 3, 18, 30)).astype(np.float32)
+    flo = rng.uniform(-peak, peak, (2, 2, 18, 30)).astype(np.float32)
+    cot = [rng.randn(2, 3, 18, 30), rng.randn(2, 1, 18, 30)]
+    grads = []
+    for fn in (lambda i, f: warp.fwarp(i, f, 8), warp.fwarp_splat_plain):
+        i = torch.from_numpy(img).requires_grad_()
+        f = torch.from_numpy(flo).requires_grad_()
+        sum((o * torch.from_numpy(c.astype(np.float32))).sum()
+            for o, c in zip(fn(i, f), cot)).backward()
+        grads.append((i.grad, f.grad))
+    for g, want in zip(*grads):
+        torch.testing.assert_close(g, want, atol=ATOL, rtol=RTOL)
+
+
+def test_autograd_functions_route_to_the_backward_kernels(monkeypatch):
+    """The card's autograd wiring, run on the CPU with the kernel
+    launchers replaced by their plain versions: each Function gives the
+    plain versions' gradients, saves what its forward read, launches one
+    backward per forward, and the in-image weight plane carries no
+    gradient. Under no_grad no Function is built."""
+    def gather(halves, relative, want_ones):
+        outs = [warp.bilinear_gather_plain(i.detach(), c.detach(), relative)
+                for i, c in halves]
+        kernels.bilinear_gather.launches += 1
+        return (torch.cat([o for o, _ in outs]),
+                torch.cat([o for _, o in outs]) if relative and want_ones
+                else None)
+
+    def gather_bwd(halves, relative):
+        r = [warp.bilinear_gather_plain_vjp(i, c, relative, g)
+             for i, c, g in halves]
+        kernels.bilinear_gather_bwd.launches += 1
+        return torch.cat([a for a, _ in r]), torch.cat([b for _, b in r])
+
+    def splat(img, flo, stats=None):
+        kernels.fwarp_splat.launches += 1
+        return tuple(t.detach() for t in warp.fwarp_splat_plain(
+            img.detach(), flo.detach()))
+
+    def splat_bwd(img, flo, gout, gnorm):
+        kernels.fwarp_splat_bwd.launches += 1
+        return warp.fwarp_splat_plain_vjp(img, flo, gout, gnorm)
+
+    monkeypatch.setattr(kernels, "_launch_gather", gather)
+    monkeypatch.setattr(kernels, "_launch_gather_bwd", gather_bwd)
+    monkeypatch.setattr(kernels, "_launch_splat_bwd", splat_bwd)
+    rng = np.random.RandomState(9)
+
+    def leaf(*shape, scale=1.0):
+        return torch.from_numpy((rng.randn(*shape) * scale).astype(
+            np.float32)).requires_grad_()
+
+    def grads_of(fn, xs):
+        for x in xs:
+            x.grad = None
+        outs = fn(*xs)
+        sum((o * (k + 1)).square().sum() for k, o in enumerate(outs)
+            if o is not None and o.requires_grad).backward()
+        return [x.grad.clone() for x in xs]
+
+    a, b = leaf(2, 3, 9, 11), leaf(2, 3, 9, 11)
+    fa, fb = leaf(2, 2, 9, 11, scale=3), leaf(2, 2, 9, 11, scale=3)
+    before = kernels.launch_counts()
+    got = grads_of(lambda *x: kernels._GatherPair.apply(*x, True, True)[:2],
+                   [a, b, fa, fb])
+    want = grads_of(lambda x, y, f, g: (
+        warp.bilinear_gather_plain(x, f, True)[0],
+        warp.bilinear_gather_plain(y, g, True)[0]), [a, b, fa, fb])
+    for g, w in zip(got, want):
+        torch.testing.assert_close(g, w, atol=0, rtol=0)
+    out, ones = kernels._Gather.apply(a, fa, True, True)
+    assert out.requires_grad and not ones.requires_grad
+    got = grads_of(lambda x, f: kernels._Gather.apply(x, f, False, False)[:1],
+                   [a, fa])
+    want = grads_of(lambda x, f: (warp.bilinear_gather_plain(x, f, False)[0],),
+                    [a, fa])
+    for g, w in zip(got, want):
+        torch.testing.assert_close(g, w, atol=0, rtol=0)
+    img, flo = leaf(2, 2, 9, 11), leaf(2, 2, 9, 11, scale=2)
+    got = grads_of(lambda i, f: kernels._Fwarp.apply(i, f, splat, None),
+                   [img, flo])
+    want = grads_of(warp.fwarp_splat_plain, [img, flo])
+    for g, w in zip(got, want):
+        torch.testing.assert_close(g, w, atol=0, rtol=0)
+    after = kernels.launch_counts()
+    assert {k: after[k] - before[k] for k in after} == {
+        "bilinear_gather": 3, "fwarp_splat": 1, "fwarp_shift": 0,
+        "bilinear_gather_bwd": 2, "fwarp_splat_bwd": 1}
+    assert not kernels._needs_grad(a.detach(), fa.detach())
+    with torch.no_grad():
+        assert not kernels._needs_grad(a, fa)
