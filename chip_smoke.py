@@ -38,15 +38,25 @@ Phases:
      beyond its window, where the guard must hand the call to the atomic
      splat. The stencil's bound is the function's (the splat's bytes and
      operations); its window's taps are printed beside it, not counted
-     into it;
+     into it. The bfloat16 model's gathers: both pairs again on bfloat16
+     values (image bytes counted at 2 B, F.grid_sample in bfloat16 as the
+     yardstick; FGAC's sample stays float32 there);
   4. main path: x8 DeMFI-Net_rb(5,3), full width, seeded random weights,
      through InferenceEngine.forward_windows on one 352x640 window
      (warm-up, then timed runs; the rate is all windows over all their
      time, printed beside each window's seconds); every output finite
      and of its shape, and exactly 7 gather and 2 splat launches per
-     window;
+     window; the device's busy share of one profiled window;
+  4b. the same at --compute_dtype bfloat16 on the same weights: the same
+     numbers, 5 of the 7 gathers on the bfloat16 instantiation, float32
+     on the host, the PSNR of its frames against phase 4's through
+     ``bf16_serving_label``; then each of the two with cudnn.benchmark
+     off and on in turns (the default, off, is left as it is);
   5. whole path: the card (kernels) against the port on the CPU (plain
-     versions) at 64x96 on the same weights, every WindowResult field;
+     versions) at 64x96 on the same weights, every WindowResult field,
+     with cudnn.benchmark on and off;
+  5b. the same at bfloat16: every field float32 and of its shape, its
+     mean and std within 0.08 (per-pixel checks mean nothing there);
   6. eval entry point: a synthetic dataset tree (2 scenes, 2 windows
      each, 352x640 PNGs) and a seeded checkpoint of full-width
      DeMFI-Net_rb(5,3) with the flow head calibrated to 6.5 px, then
@@ -56,10 +66,13 @@ Phases:
      window through dispatch_windows/fetch_windows, and the two runs'
      metrics and PNG bytes identical; windows/s and the share of wall
      time that the engine's stream spent inside dispatched windows (an
-     upper bound on the device's busy share); then ``--phase
-     test_custom`` x4 on one small scene;
+     upper bound on the device's busy share); once more with
+     ``--compute_dtype bfloat16`` (finite metrics, the same PNG names);
+     then ``--phase test_custom`` x4 on one small scene, at float32 and
+     at bfloat16;
   7. training, DeMFI-Net_rb(5,3) at its published setting (batch 2,
-     256x256 patches, N_trn = 5, float32): (a) each backward kernel
+     256x256 patches, N_trn = 5, float32 and bfloat16): (a) each backward
+     kernel
      against its plain vjp (autograd through the plain version) at the
      train step's shapes, on inputs from the model's own Stage I with the
      flow head calibrated to about 24 px: the gather's on both C=64
@@ -68,23 +81,32 @@ Phases:
      a yardstick; the splat's on the CFR flows, i.i.d. noise flows and
      non-finite flows (dropped pixels get zero gradients), twice for a
      bitwise comparison; each with device ms, enqueue us, bound and the
-     plain vjp's ms; (b) one train step on the card against the port on
+     plain vjp's ms; the gather's pairs again on bfloat16 images (their
+     gradient within 1e-2 of the largest value, the coordinates' 1e-5);
+     (b) one train step on the card against the port on
      the CPU at 64x64 on the same weights and batch: the loss, and every
      gradient against the CPU's to the larger of 1e-3 and twice the
      larger of the CPU's own change under 1e-6 nudges of the batch
      (sized to the card's departure on the flows:
      ``demfi_torch.utils.grad_check.gradient_bounds``) and the card's
      change between two runs; each of five planted faults (a group of
-     warps passing no gradient on) must fail that check; (c) 8 steps on
-     one
-     fixed batch: the loss falls; seconds per step, forward / backward /
-     optimizer device time (CUDA events), peak memory, and exactly 9
-     gather, 9 gather-backward, 2 splat, 2 splat-backward and no stencil
-     launches per step; (d) ``cli --phase train`` on a synthetic tree (4
+     warps passing no gradient on) must fail that check; (b') the same
+     at bfloat16, where the fault of every warp must fail it; (c) 8 steps
+     on one fixed batch: the loss falls; seconds per step, forward /
+     backward / optimizer device time (CUDA events), peak memory, and
+     exactly 9 gather, 9 gather-backward, 2 splat, 2 splat-backward and
+     no stencil launches per step; then steps with cudnn.benchmark off
+     and on in turns;
+     (c') the same at bfloat16 from the same weights (7 of the 9 gathers
+     and gather-backwards on the bfloat16 instantiation; parameters,
+     gradients and Adam's state float32); (d) ``cli --phase train`` on a
+     synthetic tree (4
      train scenes, phase 6's test scenes for validation and the final
      evaluation at x2) for 2 epochs, ``--auto_resume`` for a third
      (starts at epoch 2, Adam's step count carried over), then ``--phase
-     test`` on the trained checkpoint (strict load).
+     test`` on the trained checkpoint (strict load); then one epoch at
+     ``--compute_dtype bfloat16``, whose float32 checkpoint loads into a
+     float32 model.
 
 Prints a {"kernels": [...]} line, then as its last line
 {"ok": true, "device": {"platform": "gpu", ...}}. Any failed phase exits
@@ -146,6 +168,22 @@ OVERFIT_STEPS, OVERFIT_WARMUP = 8, 2
 TRAIN_LAUNCHES = {"bilinear_gather": 9, "fwarp_splat": 2, "fwarp_shift": 0,
                   "bilinear_gather_bwd": 9, "fwarp_splat_bwd": 2}
 CLI_TRAIN_SCENES, CLI_BLUR_FRAMES = 4, 4
+# bfloat16 (--compute_dtype bfloat16): the feature and booster pairs
+# gather bfloat16 values, FGAC's two samples stay float32
+BF16_GATHERS_PER_WINDOW = 5    # 2 feature pairs + 3 booster pairs
+TRAIN_BF16_LAUNCHES = {"bilinear_gather": 7, "bilinear_gather_bwd": 7}
+# the backward's bfloat16 image gradient against its plain vjp: of the
+# largest value (a bfloat16 rounding is 2^-8 of the value)
+BWD_BF16_IMG_RTOL = 1e-2
+# bfloat16 against bfloat16 on other hardware: per-pixel checks mean
+# nothing (rounding a flow moves which pixel a warp reads), each output's
+# mean and std within this (docs/PERF.md:216-218)
+BF16_MOMENTS_TOL = 0.08
+# cudnn.benchmark off against on: after one call with it on (it
+# autotunes), rounds of calls in turns off, on, on, off, so that a drift
+# of the host or the card falls on both sides
+BENCHMARK_ROUNDS = 2
+BF16_LOSS_RTOL = 1e-2          # a bfloat16 train step's loss, card vs CPU
 
 
 def fail(msg: str) -> None:
@@ -222,6 +260,40 @@ class DeviceTimer:
         return sum(a.elapsed_time(b) for a, b in pairs) / n
 
 
+def benchmark_ab(torch, fn) -> dict:
+    """Seconds of fn() (host clock to a synchronise) with
+    torch.backends.cudnn.benchmark off and on, in turns (off, on, on,
+    off) over BENCHMARK_ROUNDS rounds, after one call with it on that
+    autotunes. Leaves it off, the default."""
+    secs = {"off": [], "on": []}
+    try:
+        torch.backends.cudnn.benchmark = True
+        fn()
+        torch.cuda.synchronize()
+        for _ in range(BENCHMARK_ROUNDS):
+            for on in (False, True, True, False):
+                torch.backends.cudnn.benchmark = on
+                t0 = time.perf_counter()
+                fn()
+                torch.cuda.synchronize()
+                secs["on" if on else "off"].append(time.perf_counter() - t0)
+    finally:
+        torch.backends.cudnn.benchmark = False
+    return secs
+
+
+def benchmark_text(secs: dict, unit: str) -> str:
+    med = {k: float(np.median(v)) for k, v in secs.items()}
+    return (f"off against on in turns (off, on, on, off) x "
+            f"{BENCHMARK_ROUNDS}: seconds a {unit} off "
+            f"{['%.4f' % v for v in secs['off']]}, on "
+            f"{['%.4f' % v for v in secs['on']]}; medians off "
+            f"{med['off']:.4f}, on {med['on']:.4f} (on/off "
+            f"{med['on'] / med['off']:.3f}); on faster in "
+            f"{sum(a < b for a, b in zip(secs['on'], secs['off']))} of "
+            f"{len(secs['on'])} pairs")
+
+
 def gather_image_pixels(torch, coords, relative: bool, h: int, w: int,
                         where=None) -> int:
     """Pixels of the image that a bilinear gather at coords [B,2,Hq,Wq]
@@ -280,11 +352,11 @@ def splat_targets(torch, flo) -> int:
     return int(reached.sum())
 
 
-def device_breakdown(torch, fn, label: str) -> str:
+def device_breakdown(torch, fn, label: str):
     """A torch.profiler trace of fn(): wall time, the device's busy share
     (the union of the intervals of device-side events, profiler
     bookkeeping rows excluded), device seconds by kind and the top
-    kernels."""
+    kernels. Returns (the text, the busy share)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     with profile(activities=[ProfilerActivity.CPU,
@@ -315,7 +387,8 @@ def device_breakdown(torch, fn, label: str) -> str:
     return (f"{label}: wall {wall:.4f} s, device busy {busy:.4f} s "
             f"({100 * busy / wall:.1f} %, idle {100 * (1 - busy / wall):.1f} "
             f"%); device seconds by kind "
-            f"{ {k: round(v, 4) for k, v in share.items()} }; top:\n" + table)
+            f"{ {k: round(v, 4) for k, v in share.items()} }; top:\n"
+            + table), busy / wall
 
 
 def train_phase(torch, dev, data_root: Path, tmp: Path,
@@ -366,26 +439,28 @@ def train_phase(torch, dev, data_root: Path, tmp: Path,
     bwd_rows = []
 
     def bwd_row(kernel, name, per_step, fn, plain, library, pairs, nbytes,
-                ops, note=""):
+                ops, note="", tols=None, per_step_bf16=0):
         """One backward case: pairs() gives (kernel result, plain vjp
-        result) tensors; fn() launches once."""
+        result) tensors, ``tols`` their tolerances (BWD_RTOL each by
+        default); fn() launches once."""
         n0 = getattr(kernels, kernel).launches
-        got_want = pairs()
+        got_want = [(a.float(), b.float()) for a, b in pairs()]
         torch.cuda.synchronize()
         check(getattr(kernels, kernel).launches == n0 + 1,
               f"{name}: {getattr(kernels, kernel).launches - n0} launches, "
               f"expected 1")
+        tols = tols or [BWD_RTOL] * len(got_want)
         errs = [float((a - b).abs().max()) / max(1.0, float(b.abs().max()))
                 for a, b in got_want]
         finite = all(bool(torch.isfinite(a).all()) for a, _ in got_want)
         r = dict(kernel=kernel, case=name, per_step=per_step,
-                 ms=timer.ms(fn, 10),
+                 per_step_bf16=per_step_bf16, ms=timer.ms(fn, 10),
                  enqueue_us=enqueue_us(torch, fn, ENQUEUE_CALLS),
                  plain_ms=timer.ms(plain, 3),
                  library_ms=None if library is None else timer.ms(library, 10),
                  max_abs_err=max(float((a - b).abs().max())
                                  for a, b in got_want),
-                 max_rel_err=max(errs), tol=BWD_RTOL, bytes=nbytes,
+                 max_rel_err=max(errs), tol=max(tols), bytes=nbytes,
                  operations=ops)
         bound_b = nbytes / HBM_BYTES_PER_S * 1e3
         bound_o = ops / F32_FLOPS_PER_S * 1e3
@@ -394,16 +469,18 @@ def train_phase(torch, dev, data_root: Path, tmp: Path,
         bwd_rows.append(r)
         lib = ("none (no single-call equivalent)" if library is None else
                f"{r['library_ms']:.4f} ms (aten.grid_sampler_2d_backward)")
-        say(f"[7 train a] {name}: max err {max(errs):.3g} of the largest "
-            f"value (tol {BWD_RTOL:.0e}){note} | kernel {r['ms']:.4f} ms "
+        say(f"[7 train a] {name}: max err "
+            f"{', '.join('%.3g' % e for e in errs)} of the largest value "
+            f"(tol {', '.join('%.0e' % v for v in tols)}){note} | kernel "
+            f"{r['ms']:.4f} ms "
             f"device, {r['enqueue_us']:.1f} us enqueue; plain vjp "
             f"{r['plain_ms']:.4f} ms; library {lib} | bound "
             f"{r['bound_ms']:.4f} ms by {r['bound_by']} ({nbytes / 1e9:.4f} "
             f"GB, {ops / 1e9:.4f} G operations; kernel at "
             f"{r['ms'] / r['bound_ms']:.2f}x)")
         check(finite, f"{name}: non-finite kernel output")
-        check(max(errs) <= BWD_RTOL, f"{name}: kernel disagrees with its "
-                                     f"plain vjp ({max(errs)} > {BWD_RTOL})")
+        check(all(e <= v for e, v in zip(errs, tols)),
+              f"{name}: kernel disagrees with its plain vjp ({errs} > {tols})")
         return got_want
 
     def grid_of(img, coords, relative):
@@ -415,8 +492,10 @@ def train_phase(torch, dev, data_root: Path, tmp: Path,
         return torch.stack([gx * (2.0 / (w - 1)) - 1.0,
                             gy * (2.0 / (h - 1)) - 1.0], dim=-1)
 
-    def gather_case(name, per_step, halves, relative):
-        """halves: [(img, coords, grad_out)], one or two; one launch."""
+    def gather_case(name, per_step, halves, relative, per_step_bf16=0):
+        """halves: [(img, coords, grad_out)], one or two; one launch. A
+        bfloat16 image's gradient is held to BWD_BF16_IMG_RTOL (it is
+        rounded to bfloat16), the coordinates' to BWD_RTOL."""
         pair = len(halves) == 2
         nbytes = ops = 0
         library = []
@@ -425,15 +504,16 @@ def train_phase(torch, dev, data_root: Path, tmp: Path,
             hq, wq = co.shape[2:]
             live, reached = gather_bwd_counts(torch, warp, co, relative, h, w)
             # read: grad_out at the unmasked pixels, the coordinates, the
-            # image pixels their taps reach; written: grad_img in full
-            # (its zero fill), grad_coords
-            nbytes += 4 * (live * c + co.numel() + reached * c
-                           + img.numel() + co.numel())
+            # image pixels their taps reach (at the image's element size);
+            # written: grad_img in full (its zero fill, in the image's
+            # dtype), grad_coords
+            nbytes += (4 * (live * c + 2 * co.numel())
+                       + img.element_size() * (reached * c + img.numel()))
             ops += live * (24 * c + 30)
-            grid = grid_of(img, co, relative)
+            grid = grid_of(img, co, relative).to(img.dtype)
             masked = (go * (warp.bilinear_gather_plain(
                 torch.ones_like(img[:, :1]), co, True)[1] >= 0.999)
-                if relative else go)
+                if relative else go).to(img.dtype)
             library.append(lambda m=masked, i=img, gr=grid:
                            torch.ops.aten.grid_sampler_2d_backward(
                                m, i, gr, 0, 0, True, [True, True]))
@@ -460,22 +540,36 @@ def train_phase(torch, dev, data_root: Path, tmp: Path,
                 gi, gc = fn()
                 p = warp.bilinear_gather_plain_vjp(a, fa, relative, ga)
                 return [(gi, p[0]), (gc, p[1])]
+        bf16 = halves[0][0].dtype == torch.bfloat16
         bwd_row("bilinear_gather_bwd", name, per_step, fn,
                 lambda: [warp.bilinear_gather_plain_vjp(i, co, relative, go)
                          for i, co, go in halves],
                 lambda: [f() for f in library], pairs, nbytes, ops,
-                "; one launch" if pair else "")
+                "; one launch" if pair else "",
+                [BWD_BF16_IMG_RTOL if bf16 else BWD_RTOL, BWD_RTOL]
+                * len(halves), per_step_bf16)
+        bwd_rows[-1]["image_dtype"] = "bfloat16" if bf16 else "float32"
 
     nb, nf, ps = TRAIN_B, cfg.nf, TRAIN_PS
     gather_case(f"gather bwd pair rel C={nf} 2x{nb} {ps}x{ps}", 2,
                 [(ctx.f0.contiguous(), ft0, cot(nb, nf, ps, ps)),
                  (ctx.f1.contiguous(), ft1, cot(nb, nf, ps, ps))], True)
+    # FGAC's sample stays float32 in the bfloat16 model
     gather_case(f"gather bwd abs C={nf} B={nb} (FGAC)", 2,
                 [(ctx.f0.contiguous(), ctx.flow_01.contiguous(),
-                  cot(nb, nf, ps, ps))], False)
+                  cot(nb, nf, ps, ps))], False, per_step_bf16=2)
     gather_case(f"gather bwd pair rel C=3 2x{nb}", cfg.N_trn,
                 [(inputs[:, 0].contiguous(), ft0, cot(nb, 3, ps, ps)),
                  (inputs[:, 1].contiguous(), ft1, cot(nb, 3, ps, ps))], True)
+    # the bfloat16 model's pairs: bfloat16 images, float32 cotangents
+    gather_case(f"gather bwd pair rel C={nf} 2x{nb} {ps}x{ps} bf16", 0,
+                [(ctx.f0.bfloat16(), ft0, cot(nb, nf, ps, ps)),
+                 (ctx.f1.bfloat16(), ft1, cot(nb, nf, ps, ps))], True,
+                per_step_bf16=2)
+    gather_case(f"gather bwd pair rel C=3 2x{nb} bf16", 0,
+                [(inputs[:, 0].bfloat16(), ft0, cot(nb, 3, ps, ps)),
+                 (inputs[:, 1].bfloat16(), ft1, cot(nb, 3, ps, ps))], True,
+                per_step_bf16=cfg.N_trn)
 
     img = ctx.flow_01.contiguous()
     flo_smooth = (tt * ctx.flow_01).contiguous()
@@ -528,22 +622,29 @@ def train_phase(torch, dev, data_root: Path, tmp: Path,
     del ctx, ft0, ft1, flo_noise, flo_bad, flo_bad_dropped, timer
     torch.cuda.empty_cache()
 
-    # ---- (b) one full-width train step, card against CPU, 64x64
+    # ---- (b) one full-width train step, card against CPU, 64x64, at
+    # float32 and at bfloat16 (b')
+    small = np.random.RandomState(SEED + 8).uniform(
+        -1, 1, (TRAIN_B, 9, TRAIN_SMALL, TRAIN_SMALL, 3)).astype(np.float32)
     with torch.enable_grad():
-        small = np.random.RandomState(SEED + 8).uniform(
-            -1, 1, (TRAIN_B, 9, TRAIN_SMALL, TRAIN_SMALL, 3)).astype(np.float32)
         gmodel = make_model(cfg, device=dev)
         calibrate_flow_head(gmodel, torch.from_numpy(small[:, :4]).to(dev)
                             .permute(0, 1, 4, 2, 3).contiguous(),
                             FLOW_TARGET_PX)
         weights = {k: v.cpu() for k, v in gmodel.state_dict().items()}
+    del gmodel
 
+    def step_check(scfg, tag, must_catch, loss_rtol):
+        """One train step of ``scfg`` on the card against the port on the
+        CPU: the loss, every gradient against its gradient_bounds bound,
+        and the planted faults (``must_catch`` of them must fail the
+        check; the others are reported)."""
         def grads_of(device, batch):
             """(loss, {name: gradient or None}, the flows [N+1,B,4,H,W])
             of one train step."""
-            m = make_model(cfg, device=device)
+            m = make_model(scfg, device=device)
             m.load_state_dict(weights, strict=True)
-            state = create_train_state(cfg, m)
+            state = create_train_state(scfg, m)
             got, flows = {}, []
             m.register_forward_hook(lambda _m, _in, out: flows.append(
                 out.flow_preds.detach().cpu()))
@@ -553,112 +654,167 @@ def train_phase(torch, dev, data_root: Path, tmp: Path,
                     got.update({k: None if p.grad is None
                                 else p.grad.detach().cpu().clone()
                                 for k, p in m.named_parameters()})
-            metrics = make_train_step(cfg)(state, batch, t_np, on_phase=snap)
+            metrics = make_train_step(scfg)(state, batch, t_np, on_phase=snap)
             return float(metrics["total_loss"]), got, flows[0]
-        loss_g, grads_g, flows_g = grads_of(dev, small)
-        rerun = grads_of(dev, small)[1]
-        loss_c, grads_c, flows_c = grads_of("cpu", small)
-        try:
-            bound, moves, gap = gradient_bounds(
-                lambda delta: grads_of("cpu", small + delta)[1:], grads_c,
-                flows_c, flows_g, {k: rel_frobenius(rerun[k], g)
-                                   for k, g in grads_g.items()
-                                   if g is not None},
-                (np.random.RandomState(s).randn(*small.shape).astype(
-                    np.float32) for s in range(SEED + 9,
-                                               SEED + 9 + NUDGE_DRAWS)))
-        except RuntimeError as e:
-            fail(str(e))
-        faulty = {}
-        for kind in PLANTED_FAULTS:    # the check must catch each
-            with planted_fault(kind):
-                faulty[kind] = grads_of(dev, small)[1]
-    del gmodel
-    loss_rel = abs(loss_g - loss_c) / abs(loss_c)
-    say(f"[7 train b] one train step at {TRAIN_SMALL}x{TRAIN_SMALL} B={TRAIN_B}"
-        f", full width: loss card {loss_g:.7f} cpu {loss_c:.7f} (rel "
-        f"{loss_rel:.2e}, tol {STEP_LOSS_RTOL:.0e})")
-    check(loss_rel <= STEP_LOSS_RTOL, f"train step loss: card {loss_g} cpu "
-                                      f"{loss_c}")
-    check(all((grads_g[k] is None) == (grads_c[k] is None) for k in grads_c),
-          "card and CPU differ in which parameters have a gradient")
-    say(f"[7 train b] flows, relative Frobenius: card against CPU {gap:.3g}; "
-        f"the CPU under the {len(moves)} counted {NUDGE:.0e} nudges of the "
-        f"batch {', '.join('%.3g' % v for v in moves)} "
-        f"({max(moves) / gap:.2f}x the card's)")
-    worst = (0.0, "", 0.0, 0.0)
-    for k, b in bound.items():
-        err = rel_frobenius(grads_g[k], grads_c[k])
-        check(err <= b, f"train step gradient {k}: card against CPU "
-                        f"{err:.3g} > {b:.3g}")
-        worst = max(worst, (err / b, k, err, b))
-    over = sum(1 for k in bound
-               if rel_frobenius(grads_g[k], grads_c[k]) > GRAD_TOL)
-    say(f"[7 train b] {len(bound)} parameter gradients, card against CPU "
-        f"(relative Frobenius error; bound per tensor the larger of "
-        f"{GRAD_TOL:.0e} and twice the larger of the CPU's change under the "
-        f"nudges and the card's between two runs): worst {worst[1]} "
-        f"{worst[2]:.3g} (bound {worst[3]:.3g}, {worst[0]:.2f} of it); "
-        f"{over} tensors above {GRAD_TOL:.0e}")
-    caught = {}
-    for kind, got in faulty.items():
-        ratios = [rel_frobenius(torch.zeros_like(grads_c[k]) if got[k] is None
-                                else got[k], grads_c[k]) / bound[k]
-                  for k in bound]
-        caught[kind] = (sum(r > 1 for r in ratios), max(ratios))
-        check(caught[kind][0] > 0, f"a planted fault ({kind}) passes the "
-                                   f"gradient check")
-    say(f"[7 train b] planted faults, one group of warps passing no "
-        f"gradient on: tensors beyond their bounds (largest ratio) "
-        + ", ".join(f"{k} {n} ({r:.1f}x)" for k, (n, r) in caught.items()))
+        with torch.enable_grad():
+            loss_g, grads_g, flows_g = grads_of(dev, small)
+            rerun = grads_of(dev, small)[1]
+            loss_c, grads_c, flows_c = grads_of("cpu", small)
+            try:
+                bound, moves, gap = gradient_bounds(
+                    lambda delta: grads_of("cpu", small + delta)[1:], grads_c,
+                    flows_c, flows_g, {k: rel_frobenius(rerun[k], g)
+                                       for k, g in grads_g.items()
+                                       if g is not None},
+                    (np.random.RandomState(s).randn(*small.shape).astype(
+                        np.float32) for s in range(SEED + 9,
+                                                   SEED + 9 + NUDGE_DRAWS)))
+            except RuntimeError as e:
+                fail(f"{tag}: {e}")
+            faulty = {}
+            for kind in PLANTED_FAULTS:    # the check must catch each
+                with planted_fault(kind):
+                    faulty[kind] = grads_of(dev, small)[1]
+        check(all(g is None or g.dtype == torch.float32
+                  for g in grads_g.values()),
+              f"{tag}: a gradient that is not float32")
+        loss_rel = abs(loss_g - loss_c) / abs(loss_c)
+        say(f"[{tag}] one train step at {TRAIN_SMALL}x{TRAIN_SMALL} "
+            f"B={TRAIN_B}, full width, {scfg.compute_dtype}: loss card "
+            f"{loss_g:.7f} cpu {loss_c:.7f} (rel {loss_rel:.2e}, tol "
+            f"{loss_rtol:.0e})")
+        check(loss_rel <= loss_rtol, f"{tag} train step loss: card "
+                                     f"{loss_g} cpu {loss_c}")
+        check(all((grads_g[k] is None) == (grads_c[k] is None)
+                  for k in grads_c),
+              f"{tag}: card and CPU differ in which parameters have a "
+              f"gradient")
+        say(f"[{tag}] flows, relative Frobenius: card against CPU "
+            f"{gap:.3g}; the CPU under the {len(moves)} counted {NUDGE:.0e} "
+            f"nudges of the batch {', '.join('%.3g' % v for v in moves)} "
+            f"({max(moves) / gap:.2f}x the card's)")
+        worst = (0.0, "", 0.0, 0.0)
+        for k, b in bound.items():
+            err = rel_frobenius(grads_g[k], grads_c[k])
+            check(err <= b, f"{tag} train step gradient {k}: card against "
+                            f"CPU {err:.3g} > {b:.3g}")
+            worst = max(worst, (err / b, k, err, b))
+        over = sum(1 for k in bound
+                   if rel_frobenius(grads_g[k], grads_c[k]) > GRAD_TOL)
+        say(f"[{tag}] {len(bound)} parameter gradients, card against CPU "
+            f"(relative Frobenius error; bound per tensor the larger of "
+            f"{GRAD_TOL:.0e} and twice the larger of the CPU's change under "
+            f"the nudges and the card's between two runs): worst {worst[1]} "
+            f"{worst[2]:.3g} (bound {worst[3]:.3g}, {worst[0]:.2f} of it); "
+            f"{over} tensors above {GRAD_TOL:.0e}; largest bound "
+            f"{max(bound.values()):.3g}")
+        caught = {}
+        for kind, got in faulty.items():
+            ratios = [rel_frobenius(torch.zeros_like(grads_c[k])
+                                    if got[k] is None else got[k],
+                                    grads_c[k]) / bound[k]
+                      for k in bound]
+            caught[kind] = (sum(r > 1 for r in ratios), max(ratios))
+            if kind in must_catch:
+                check(caught[kind][0] > 0, f"{tag}: a planted fault ({kind}) "
+                                           f"passes the gradient check")
+        say(f"[{tag}] planted faults, one group of warps passing no "
+            f"gradient on: tensors beyond their bounds (largest ratio) "
+            + ", ".join(f"{k} {n} ({r:.1f}x)" for k, (n, r) in caught.items())
+            + f"; required to fail: {', '.join(must_catch)}")
+        return dict(loss_card_cpu=[loss_g, loss_c],
+                    worst_grad=dict(name=worst[1], err=worst[2],
+                                    bound=worst[3]),
+                    largest_bound=max(bound.values()),
+                    flow_gap_nudges=[gap] + moves, planted_faults=caught)
+    checked = step_check(cfg, "7 train b", PLANTED_FAULTS, STEP_LOSS_RTOL)
+    # at bfloat16 the step's rounding is chaotic: the bounds widen, and
+    # the fault of every warp must still fail the check
+    cfg16 = dataclasses.replace(cfg, compute_dtype="bfloat16")
+    checked16 = step_check(cfg16, "7 train b'", ("every_warp",),
+                           BF16_LOSS_RTOL)
 
-    # ---- (c) 8 steps on one fixed full-width batch
-    with torch.enable_grad():
-        state = create_train_state(cfg, model)
-        step = make_train_step(cfg)
-        torch.cuda.synchronize()
-        base = torch.cuda.memory_allocated()
-        torch.cuda.reset_peak_memory_stats()
-        kernels.reset_launch_counts()
-        losses, secs, split = [], [], []
-        for _ in range(OVERFIT_STEPS):
-            ev = {k: torch.cuda.Event(enable_timing=True)
-                  for k in ("start", "forward", "backward", "optimizer")}
-            t0 = time.perf_counter()
-            ev["start"].record()
-            m = step(state, frames, t_dev,
-                     on_phase=lambda phase: ev[phase].record())
-            losses.append(float(m["total_loss"]))
+    # ---- (c) 8 steps on one fixed full-width batch, at float32 and at
+    # bfloat16 (c'), from the same weights; then cudnn.benchmark on
+    weights0 = {k: v.clone() for k, v in model.state_dict().items()}
+
+    def fixed_steps(scfg, tag, m):
+        with torch.enable_grad():
+            state = create_train_state(scfg, m)
+            step = make_train_step(scfg)
             torch.cuda.synchronize()
-            secs.append(time.perf_counter() - t0)
-            split.append([ev["start"].elapsed_time(ev["forward"]),
-                          ev["forward"].elapsed_time(ev["backward"]),
-                          ev["backward"].elapsed_time(ev["optimizer"])])
-        train_counts = kernels.launch_counts()
-        peak = torch.cuda.max_memory_allocated()
-        if profile:
-            say(device_breakdown(torch, lambda: step(state, frames, t_dev),
-                                 "[7 profile] one train step"))
-    want = {k: v * OVERFIT_STEPS for k, v in TRAIN_LAUNCHES.items()}
-    check(train_counts == want, f"train launches {train_counts} != {want} over "
-                                f"{OVERFIT_STEPS} steps")
-    check(all(np.isfinite(losses)), f"train losses {losses}")
-    check(losses[-1] < losses[0], f"the loss did not fall: {losses}")
-    timed = secs[OVERFIT_WARMUP:]
-    s_step = float(np.median(timed))
-    split_ms = np.median(np.array(split[OVERFIT_WARMUP:]), axis=0)
-    say(f"[7 train c] {OVERFIT_STEPS} steps of DeMFI-Net_rb(5,3) at "
-        f"{TRAIN_B}x{TRAIN_PS}x{TRAIN_PS}, float32, one fixed batch, flow head "
-        f"{raw_peak:.2f} -> {FLOW_TARGET_PX} px: losses "
-        f"{['%.5f' % v for v in losses]}; seconds per step "
-        f"{['%.4f' % s for s in secs]}, median after {OVERFIT_WARMUP} warm-up "
-        f"{s_step:.4f} s = {TRAIN_B / s_step:.3f} samples/s; device ms per "
-        f"step (CUDA events, median): forward {split_ms[0]:.2f}, backward "
-        f"{split_ms[1]:.2f}, optimizer {split_ms[2]:.2f}; peak allocated "
-        f"{peak / 2 ** 30:.3f} GiB ({(peak - base) / 2 ** 30:.3f} above the "
-        f"weights); launches per step "
-        f"{ {k: v / OVERFIT_STEPS for k, v in train_counts.items()} }")
-    del state, model, frames, inputs
+            base = torch.cuda.memory_allocated()
+            torch.cuda.reset_peak_memory_stats()
+            kernels.reset_launch_counts()
+            losses, secs, split = [], [], []
+            for _ in range(OVERFIT_STEPS):
+                ev = {k: torch.cuda.Event(enable_timing=True)
+                      for k in ("start", "forward", "backward", "optimizer")}
+                t0 = time.perf_counter()
+                ev["start"].record()
+                m_ = step(state, frames, t_dev,
+                          on_phase=lambda phase: ev[phase].record())
+                losses.append(float(m_["total_loss"]))
+                torch.cuda.synchronize()
+                secs.append(time.perf_counter() - t0)
+                split.append([ev["start"].elapsed_time(ev["forward"]),
+                              ev["forward"].elapsed_time(ev["backward"]),
+                              ev["backward"].elapsed_time(ev["optimizer"])])
+            counts = kernels.launch_counts()
+            bf16_counts = kernels.bf16_launch_counts()
+            peak = torch.cuda.max_memory_allocated()
+            if profile:
+                say(device_breakdown(torch, lambda: step(state, frames, t_dev),
+                                     f"[{tag} profile] one train step, "
+                                     f"{scfg.compute_dtype}")[0])
+            bench = benchmark_ab(torch, lambda: step(state, frames, t_dev))
+        want = {k: v * OVERFIT_STEPS for k, v in TRAIN_LAUNCHES.items()}
+        check(counts == want, f"{tag}: train launches {counts} != {want} over "
+                              f"{OVERFIT_STEPS} steps")
+        want16 = ({k: v * OVERFIT_STEPS for k, v in TRAIN_BF16_LAUNCHES.items()}
+                  if scfg.compute_dtype == "bfloat16"
+                  else dict.fromkeys(TRAIN_BF16_LAUNCHES, 0))
+        check(bf16_counts == want16, f"{tag}: bfloat16 launches {bf16_counts} "
+                                     f"!= {want16}")
+        check(all(np.isfinite(losses)), f"{tag}: train losses {losses}")
+        check(losses[-1] < losses[0], f"{tag}: the loss did not fall: {losses}")
+        check(all(p.dtype == torch.float32 for p in m.parameters())
+              and all(p.grad is None or p.grad.dtype == torch.float32
+                      for p in m.parameters())
+              and all(v.dtype == torch.float32
+                      for st in state.optimizer.state.values()
+                      for v in st.values()
+                      if torch.is_tensor(v) and v.is_floating_point()),
+              f"{tag}: parameters, gradients or Adam's state not float32")
+        s_step = float(np.median(secs[OVERFIT_WARMUP:]))
+        split_ms = np.median(np.array(split[OVERFIT_WARMUP:]), axis=0)
+        say(f"[{tag}] {OVERFIT_STEPS} steps of DeMFI-Net_rb(5,3) at "
+            f"{TRAIN_B}x{TRAIN_PS}x{TRAIN_PS}, {scfg.compute_dtype}, one fixed "
+            f"batch, flow head {raw_peak:.2f} -> {FLOW_TARGET_PX} px: losses "
+            f"{['%.5f' % v for v in losses]}; seconds per step "
+            f"{['%.4f' % v for v in secs]}, median after {OVERFIT_WARMUP} "
+            f"warm-up {s_step:.4f} s = {TRAIN_B / s_step:.3f} samples/s; "
+            f"device ms per step (CUDA events, median): forward "
+            f"{split_ms[0]:.2f}, backward {split_ms[1]:.2f}, optimizer "
+            f"{split_ms[2]:.2f}; peak allocated {peak / 2 ** 30:.3f} GiB "
+            f"({(peak - base) / 2 ** 30:.3f} above the weights); launches per "
+            f"step { {k: v / OVERFIT_STEPS for k, v in counts.items()} }, of "
+            f"them bfloat16 "
+            f"{ {k: v / OVERFIT_STEPS for k, v in bf16_counts.items()} }; "
+            f"parameters, gradients and Adam's state float32")
+        say(f"[{tag}] cudnn.benchmark " + benchmark_text(bench, "step"))
+        return dict(counts=counts, bf16_counts=bf16_counts,
+                    seconds_per_step=s_step, step_seconds=secs,
+                    losses=losses, samples_per_s=TRAIN_B / s_step,
+                    device_ms_forward_backward_optimizer=split_ms.tolist(),
+                    peak_bytes=peak, cudnn_benchmark_step_seconds=bench)
+    fixed = fixed_steps(cfg, "7 train c", model)
+    train_counts = fixed["counts"]
+    del model
+    model16 = make_model(cfg16, device=dev)
+    model16.load_state_dict(weights0, strict=True)
+    fixed16 = fixed_steps(cfg16, "7 train c'", model16)
+    del model16, frames, inputs
     torch.cuda.empty_cache()
 
     # ---- (d) the CLI: train two epochs, resume a third, load it for test
@@ -733,6 +889,22 @@ def train_phase(torch, dev, data_root: Path, tmp: Path,
     check(test_res is not None and bool(np.isfinite(test_res[:5]).all())
           and "epoch: 2" in out.getvalue(),
           f"--phase test on the trained checkpoint: {test_res}")
+    # one epoch at bfloat16; its checkpoint loads into a float32 model
+    t0 = time.perf_counter()
+    ck16 = tmp / "train_ckpt_bf16"
+    with torch.enable_grad(), contextlib.redirect_stdout(io.StringIO()):
+        res16 = cli([a if a != str(tmp / "train_ckpt") else str(ck16)
+                     for a in argv]
+                    + ["--epochs", "1", "--compute_dtype", "bfloat16"])
+    wall16 = time.perf_counter() - t0
+    sd16, _, _ = load_training_checkpoint(
+        str(ck16 / "DeMFInet_exp1" / "DeMFInet_exp1_latest.pt"))
+    check(bool(np.isfinite(res16["epoch_losses"]).all())
+          and bool(np.isfinite(res16["final"][:5]).all()),
+          f"bfloat16 train run: {res16}")
+    check(all(v.dtype == torch.float32 for v in sd16.values()),
+          "the bfloat16 train run saved parameters that are not float32")
+    make_model(cfg, device="cpu").load_state_dict(sd16, strict=True)
     say(f"[7 train d] cli --phase train at {TRAIN_B}x{TRAIN_PS}x{TRAIN_PS} on "
         f"{CLI_TRAIN_SCENES} scenes (written in {write_s:.2f} s): epochs 0-1 in "
         f"{first['wall']:.2f} s, losses "
@@ -742,16 +914,17 @@ def train_phase(torch, dev, data_root: Path, tmp: Path,
         f"steps carried ({second['steps']} after it) in {second['wall']:.2f} s;"
         f" {len(files)} checkpoints; --phase test x2 on the trained latest "
         f"(strict load) in {test_wall:.2f} s: intp PSNR {test_res[1]:.4f}, "
-        f"deblur PSNR {test_res[3]:.4f}")
-    return dict(bwd_rows=bwd_rows, counts=train_counts, seconds_per_step=s_step,
-                step_seconds=secs, losses=losses,
-                samples_per_s=TRAIN_B / s_step,
-                device_ms_forward_backward_optimizer=split_ms.tolist(),
-                peak_bytes=peak, loss_card_cpu=[loss_g, loss_c],
-                worst_grad=dict(name=worst[1], err=worst[2],
-                                bound=worst[3]),
-                flow_gap_nudges=[gap] + moves, planted_faults=caught,
-                cli_wall=[first["wall"], second["wall"], test_wall])
+        f"deblur PSNR {test_res[3]:.4f}; --compute_dtype bfloat16, one epoch "
+        f"in {wall16:.2f} s, losses "
+        f"{['%.5f' % v for v in res16['epoch_losses']]}, its float32 "
+        f"checkpoint loaded strictly into a float32 model")
+    return dict(bwd_rows=bwd_rows, counts=train_counts,
+                bf16_counts=fixed16["bf16_counts"],
+                float32={**{k: v for k, v in fixed.items()
+                            if k not in ("counts", "bf16_counts")}, **checked},
+                bfloat16={**{k: v for k, v in fixed16.items()
+                             if k not in ("counts",)}, **checked16},
+                cli_wall=[first["wall"], second["wall"], test_wall, wall16])
 
 
 def main() -> int:
@@ -853,25 +1026,28 @@ def main() -> int:
 
     def grid_sample_of(img, coords, relative):
         """F.grid_sample computing the same gather (the 0.999 mask of the
-        relative mode apart), on a grid made outside the timed call."""
+        relative mode apart), on a grid made outside the timed call, in
+        the image's dtype (grid_sample takes one dtype)."""
         h, w = img.shape[2:]
         gx = coords[:, 0] + (torch.arange(w, device=dev)[None, None]
                              if relative else 0)
         gy = coords[:, 1] + (torch.arange(h, device=dev)[None, :, None]
                              if relative else 0)
         grid = torch.stack([gx * (2.0 / (w - 1)) - 1.0,
-                            gy * (2.0 / (h - 1)) - 1.0], dim=-1)
+                            gy * (2.0 / (h - 1)) - 1.0], dim=-1).to(img.dtype)
         return lambda: F.grid_sample(img, grid, mode="bilinear",
                                      padding_mode="zeros", align_corners=True)
 
     def gather_bytes(img, coords, relative, ones_plane):
-        """What the call must move: the image pixels its taps reach, the
-        coordinates, the output and, where asked for, the ones plane."""
+        """What the call must move: the image pixels its taps reach (at
+        the image's element size), the coordinates, the output and, where
+        asked for, the ones plane (float32)."""
         b, c, h, w = img.shape
         hq, wq = coords.shape[2:]
-        return 4 * (gather_image_pixels(torch, coords, relative, h, w) * c
-                    + coords.numel() + b * c * hq * wq
-                    + (b * hq * wq if ones_plane else 0))
+        return (img.element_size()
+                * gather_image_pixels(torch, coords, relative, h, w) * c
+                + 4 * (coords.numel() + b * c * hq * wq
+                       + (b * hq * wq if ones_plane else 0)))
 
     def count_cats(fn):
         """fn(), and how often it called torch.cat."""
@@ -892,7 +1068,7 @@ def main() -> int:
     rows = []
 
     def gather_row(name, per_window, relative, ones_plane, imgs, coords,
-                   fn, pairs, note=""):
+                   fn, pairs, note="", per_window_bf16=0):
         """One gather case: fn() launches once; pairs() gives (kernel
         result, plain result) tensors; imgs/coords are the call's halves."""
         n0 = kernels.bilinear_gather.launches
@@ -916,6 +1092,8 @@ def main() -> int:
         bound_b = nbytes / HBM_BYTES_PER_S * 1e3
         bound_o = flops / F32_FLOPS_PER_S * 1e3
         r.update(case=name, kernel="bilinear_gather", per_window=per_window,
+                 per_window_bf16=per_window_bf16,
+                 image_dtype=str(imgs[0].dtype).replace("torch.", ""),
                  max_abs_err=err, tol=GATHER_TOL, bytes=nbytes,
                  bound_ms=max(bound_b, bound_o),
                  bound_by="bytes" if bound_b >= bound_o else "operations")
@@ -930,14 +1108,14 @@ def main() -> int:
         check(err <= GATHER_TOL, f"{name}: kernel disagrees with its plain "
                                  f"version ({err} > {GATHER_TOL})")
 
-    def single(name, per_window, img, coords, relative):
+    def single(name, per_window, img, coords, relative, per_window_bf16=0):
         def pairs():
             got = kernels.bilinear_gather(img, coords, relative)
             want = warp.bilinear_gather_plain(img, coords, relative)
             return [(g, p) for g, p in zip(got, want) if g is not None]
         gather_row(name, per_window, relative, relative, [img], [coords],
                    lambda: kernels.bilinear_gather(img, coords, relative),
-                   pairs)
+                   pairs, per_window_bf16=per_window_bf16)
 
     def no_ones(name, img, coords):
         """bwarp: the relative gather without the in-image weight plane."""
@@ -947,7 +1125,7 @@ def main() -> int:
         gather_row(name, 0, True, False, [img], [coords],
                    lambda: warp.bwarp(img, coords), pairs)
 
-    def pair(name, per_window, a, b, fa, fb):
+    def pair(name, per_window, a, b, fa, fb, per_window_bf16=0):
         """bwarp_pair on two separate halves: one launch, each half equal
         to its plain version, both equal to the gather of the
         concatenation, and no torch.cat on the way."""
@@ -960,7 +1138,7 @@ def main() -> int:
                     (gb, warp.bilinear_gather_plain(b, fb, True)[0])]
         gather_row(name, per_window, True, False, [a, b], [fa, fb],
                    lambda: warp.bwarp_pair(a, b, fa, fb), pairs,
-                   note="; one launch")
+                   note="; one launch", per_window_bf16=per_window_bf16)
         ga, gb = warp.bwarp_pair(a, b, fa, fb)
         whole = kernels.bilinear_gather(torch.cat([a, b]),
                                         torch.cat([fa, fb]), True)[0]
@@ -976,8 +1154,18 @@ def main() -> int:
     n_b0, n_b1 = rep(b0, n_t), rep(b1, n_t)
     pair("gather pair rel C=64 2x7", 2, n_f0, n_f1, ft0, ft1)
     pair("gather pair rel C=3 2x7", 3, n_b0, n_b1, ft0, ft1)
+    # FGAC's sample is float32 in the bfloat16 model too
     single("gather abs C=64 B=1", 2, ctx.f0.contiguous(),
-           ctx.flow_01.contiguous(), False)
+           ctx.flow_01.contiguous(), False, per_window_bf16=2)
+    # the bfloat16 model's pairs: the same calls on bfloat16 values (its
+    # features and decoder outputs), read at 2 B; float32 out
+    # an earlier checkout under --kernels-of may take float32 only
+    has_bf16 = hasattr(kernels, "GATHER_IMAGE_DTYPES")
+    if has_bf16:
+        pair("gather pair rel C=64 2x7 bf16", 0, n_f0.bfloat16(),
+             n_f1.bfloat16(), ft0, ft1, per_window_bf16=2)
+        pair("gather pair rel C=3 2x7 bf16", 0, n_b0.bfloat16(),
+             n_b1.bfloat16(), ft0, ft1, per_window_bf16=3)
     single("gather abs C=64 B=1 query 3Hx3W", 0, ctx.f0.contiguous(),
            warp.fgac_window_coords(ctx.flow_01, 1).contiguous(), False)
     f01 = torch.cat([n_f0, n_f1])
@@ -1269,33 +1457,132 @@ def main() -> int:
         f"GiB ({per_pi:.0f} B per pixel-instant above the weights); "
         f"launches {counts}; forward warps served by {served}")
 
+    text, busy = device_breakdown(
+        torch, lambda: engine.forward_windows(frames, ts),
+        "[4 profile] one window")
     if args.profile:
-        say(device_breakdown(torch, lambda: engine.forward_windows(frames, ts),
-                             "[4 profile] one window"))
+        say(text)
+
+    # ------------------------------------ 4b. main path at bfloat16
+    from demfi_torch.metrics import bf16_serving_label, denorm255, psnr
+    cfg16 = dataclasses.replace(cfg, compute_dtype="bfloat16")
+    model16 = make_model(cfg16, device=dev)
+    model16.load_state_dict(model.state_dict(), strict=True)   # same weights
+    engine16 = InferenceEngine(model16, num_update=cfg.N_tst)
+    engine16.forward_windows(frames, ts)                     # warm-up
+    torch.cuda.synchronize()
+    base16 = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    kernels.reset_launch_counts()
+    kernels.fwarp_served(dev, reset=True)
+    secs16 = []
+    for _ in range(REPEATS):
+        t0 = time.perf_counter()
+        res16 = engine16.forward_windows(frames, ts)
+        torch.cuda.synchronize()
+        secs16.append(time.perf_counter() - t0)
+    counts16 = kernels.launch_counts()
+    bf16_counts = kernels.bf16_launch_counts()
+    served16 = kernels.fwarp_served(dev)
+    peak16 = torch.cuda.max_memory_allocated()
+    per_pi16 = (peak16 - base16) / (H * W * (M - 1))
+    for f in dataclasses.fields(WindowResult):
+        arr = getattr(res16[0], f.name)
+        check(arr.shape == (M - 1, H, W, _field_channels(f.name))
+              and arr.dtype == np.float32,
+              f"bfloat16 {f.name}: {arr.shape} {arr.dtype} on the host")
+        check(bool(np.isfinite(arr).all()), f"bfloat16 {f.name}: non-finite")
+    check(counts16 == want_counts,
+          f"bfloat16 launch counts {counts16} != {want_counts}")
+    check(bf16_counts == {"bilinear_gather": BF16_GATHERS_PER_WINDOW * REPEATS,
+                          "bilinear_gather_bwd": 0},
+          f"bfloat16 instantiation launches {bf16_counts}")
+    check(served16 == served, f"bfloat16 forward warps served by {served16}")
+    # the served frames: 7 interpolated, the 2 deblurred centre frames
+    def served_frames(r):
+        return denorm255(np.concatenate([r.st_final, r.s0_final[:1],
+                                         r.s1_final[:1]]))
+    psnr16 = psnr(served_frames(res16[0]), served_frames(res[0]))
+    shift16, certified16, label16 = bf16_serving_label(psnr16)
+    text16, busy16 = device_breakdown(
+        torch, lambda: engine16.forward_windows(frames, ts),
+        "[4b profile] one window, bfloat16")
+    if args.profile:
+        say(text16)
+    s_win16 = sum(secs16) / REPEATS
+    say(f"[4b main path] x8 DeMFI-Net_rb(5,3) {H}x{W} bfloat16 (same weights), "
+        f"{REPEATS} windows: seconds {['%.4f' % v for v in secs16]} (min "
+        f"{min(secs16):.4f}, max {max(secs16):.4f}); {1 / s_win16:.4f} "
+        f"windows/s = {(M - 1) / s_win16:.4f} interpolated frames/s "
+        f"(float32 {1 / s_win:.4f} windows/s); device busy "
+        f"{100 * busy16:.1f} % of one profiled window (float32 "
+        f"{100 * busy:.1f} %); peak allocated {peak16 / 2 ** 30:.3f} GiB "
+        f"({per_pi16:.0f} B per pixel-instant above the weights, float32 "
+        f"{per_pi:.0f}); launches {counts16}, of them the bfloat16 "
+        f"instantiation's {bf16_counts}; host dtype float32; PSNR of the "
+        f"bfloat16 output against the float32 output on this window "
+        f"(random weights) {psnr16:.3f} dB -> {label16}")
+
+    # ----- cudnn.benchmark off against on (the default, off, is restored)
+    bench_secs = {}
+    for name, eng in (("float32", engine), ("bfloat16", engine16)):
+        bench_secs[name] = benchmark_ab(
+            torch, lambda eng=eng: eng.forward_windows(frames, ts))
+        say(f"[4 benchmark] {name}, cudnn.benchmark "
+            + benchmark_text(bench_secs[name], "window"))
 
     # ------------------------------------- 5. whole path, card vs CPU
     small = np.random.RandomState(SEED + 1).uniform(
         -1, 1, (1, 4, SMALL_H, SMALL_W, 3)).astype(np.float32)
     cpu_model = make_model(cfg, device="cpu")
     cpu_model.load_state_dict(model.state_dict(), strict=True)
-    gpu_res = engine.forward_windows(small, ts)[0]
     cpu_res = InferenceEngine(cpu_model, num_update=cfg.N_tst,
                               device="cpu").forward_windows(small, ts)[0]
-    worst = (0.0, 0.0, "")
+    for benchmark in (True, False):   # the check holds with it on as off
+        torch.backends.cudnn.benchmark = benchmark
+        gpu_res = engine.forward_windows(small, ts)[0]
+        worst = (0.0, 0.0, "")
+        for f in dataclasses.fields(WindowResult):
+            a, b = getattr(gpu_res, f.name), getattr(cpu_res, f.name)
+            check(a.shape == b.shape,
+                  f"{f.name}: card {a.shape} cpu {b.shape}")
+            err = float(np.abs(a - b).max())
+            ratio = float((np.abs(a - b)
+                           / (PATH_ATOL + PATH_RTOL * np.abs(b))).max())
+            if ratio >= worst[1]:
+                worst = (err, ratio, f.name)
+            check(ratio <= 1.0, f"{f.name}: card vs CPU max abs err {err} "
+                                f"beyond atol {PATH_ATOL} + rtol {PATH_RTOL} "
+                                f"* |cpu| (cudnn.benchmark {benchmark})")
+        say(f"[5 whole path] card vs CPU at {SMALL_H}x{SMALL_W} x8, float32, "
+            f"cudnn.benchmark {'on' if benchmark else 'off'}: worst field "
+            f"{worst[2]} max abs err {worst[0]:.3g}, {worst[1]:.3f} of the "
+            f"tolerance (atol {PATH_ATOL} + rtol {PATH_RTOL} * |cpu|)")
+
+    # ------------------------ 5b. whole path at bfloat16, card vs CPU
+    cpu16 = make_model(cfg16, device="cpu")
+    cpu16.load_state_dict(model.state_dict(), strict=True)
+    gpu16_res = engine16.forward_windows(small, ts)[0]
+    cpu16_res = InferenceEngine(cpu16, num_update=cfg.N_tst,
+                                device="cpu").forward_windows(small, ts)[0]
+    worst16 = (0.0, "")
     for f in dataclasses.fields(WindowResult):
-        a, b = getattr(gpu_res, f.name), getattr(cpu_res, f.name)
-        check(a.shape == b.shape, f"{f.name}: card {a.shape} cpu {b.shape}")
-        err = float(np.abs(a - b).max())
-        ratio = float((np.abs(a - b) / (PATH_ATOL + PATH_RTOL * np.abs(b))).max())
-        if ratio >= worst[1]:
-            worst = (err, ratio, f.name)
-        check(ratio <= 1.0, f"{f.name}: card vs CPU max abs err {err} beyond "
-                            f"atol {PATH_ATOL} + rtol {PATH_RTOL} * |cpu|")
-    say(f"[5 whole path] card vs CPU at {SMALL_H}x{SMALL_W} x8: worst field "
-        f"{worst[2]} max abs err {worst[0]:.3g}, {worst[1]:.3f} of the "
-        f"tolerance (atol {PATH_ATOL} + rtol {PATH_RTOL} * |cpu|)")
+        a, b = getattr(gpu16_res, f.name), getattr(cpu16_res, f.name)
+        check(a.shape == b.shape and a.dtype == b.dtype == np.float32,
+              f"bfloat16 {f.name}: card {a.shape} {a.dtype}, cpu {b.shape} "
+              f"{b.dtype}")
+        gap = max(abs(float(a.mean()) - float(b.mean())),
+                  abs(float(a.std()) - float(b.std())))
+        worst16 = max(worst16, (gap, f.name))
+        check(gap <= BF16_MOMENTS_TOL,
+              f"bfloat16 {f.name}: card vs CPU mean/std differ by {gap}")
+    say(f"[5b whole path] card vs CPU at {SMALL_H}x{SMALL_W} x8, bfloat16: "
+        f"every field float32 on the host and of its shape; largest gap of "
+        f"mean or std {worst16[0]:.4g} ({worst16[1]}; tol "
+        f"{BF16_MOMENTS_TOL})")
 
     del engine, model, cpu_model, gpu_res, cpu_res, res
+    del engine16, model16, cpu16, gpu16_res, cpu16_res, res16
     torch.cuda.empty_cache()
 
     # ------------------------------------------------ 6. eval entry point
@@ -1426,27 +1713,64 @@ def main() -> int:
               "the two eval runs' PNG bytes differ")
         eval_launches = b["launches"]
 
-        # test_custom, x4, one small scene
-        clip = tmp / "clips" / "clipA"
-        clip.mkdir(parents=True)
-        for i in range(5):
-            imageio.imwrite(str(clip / f"{i:05d}.png"), rng.randint(
-                0, 256, (CUSTOM_H, CUSTOM_W, 3)).astype(np.uint8))
-        _, text, wall = run_cli([
-            "--phase", "test_custom", "--multiple_MFI", "4",
-            "--fwarp_shift_d", str(SHIFT_D), "--custom_path",
-            str(tmp / "clips"), "--checkpoint_dir", str(tmp / "ckpt")])
-        out_dir = tmp / "clips" / "clipA_sharply_interpolated_x4"
-        names = sorted(os.listdir(out_dir))
-        want_names = sorted([f"{w:05d}_{j:03d}.png" for w in (1, 2)
-                             for j in range(3)]
-                            + ["00001.png", "00002.png", "00003.png"])
-        check(names == want_names, f"test_custom wrote {names}")
-        for n in names:
-            img = imageio.imread(str(out_dir / n))
-            check(img.shape == (CUSTOM_H, CUSTOM_W, 3), f"{n}: {img.shape}")
-        say(f"[6 eval] test_custom x4 at {CUSTOM_H}x{CUSTOM_W}: {len(names)} "
-            f"PNGs in clipA_sharply_interpolated_x4, cli wall {wall:.2f} s")
+        # the same evaluation at bfloat16, on the same float32 checkpoint
+        kernels.reset_launch_counts()
+        kernels.fwarp_served(dev, reset=True)
+        driver.last_eval_stats = None
+        result16, text16, wall16 = run_cli(
+            argv + ["--compute_dtype", "bfloat16",
+                    "--test_img_dir", str(tmp / "imgs_bf16")])
+        torch.cuda.synchronize()
+        launches16 = kernels.launch_counts()
+        bf16_eval = kernels.bf16_launch_counts()
+        st16 = driver.last_eval_stats
+        check(result16 is not None and bool(np.isfinite(result16[:5]).all()),
+              f"bfloat16 eval run: metrics {result16}")
+        check("# compute_dtype : bfloat16" in text16
+              and f"x{M} MFI results" in text16,
+              "bfloat16 eval run: no bfloat16 config or result table")
+        check(launches16 == eval_launches and bf16_eval == {
+            "bilinear_gather": BF16_GATHERS_PER_WINDOW * n_windows,
+            "bilinear_gather_bwd": 0},
+            f"bfloat16 eval run: launches {launches16}, bfloat16 {bf16_eval}")
+        names16 = {f"scene{sc}/{n}" for sc in range(EVAL_SCENES)
+                   for n in os.listdir(os.path.join(result16[5], f"scene{sc}"))}
+        check(names16 == set(b["files"]),
+              f"bfloat16 eval run wrote {sorted(names16)}")
+        say(f"[6 eval] bfloat16 run (--compute_dtype bfloat16, the float32 "
+            f"checkpoint): loss {result16[0]:.6f}, intp PSNR "
+            f"{result16[1]:.4f} SSIM {result16[2]:.6f}, deblur PSNR "
+            f"{result16[3]:.4f} SSIM {result16[4]:.6f}; {len(names16)} PNGs; "
+            f"evaluate wall {st16.wall_seconds:.4f} s = "
+            f"{n_windows / st16.wall_seconds:.4f} windows/s; launches "
+            f"{launches16}, of them bfloat16 {bf16_eval}")
+
+        # test_custom, x4, one small scene, at float32 and at bfloat16
+        clip = [rng.randint(0, 256, (CUSTOM_H, CUSTOM_W, 3)).astype(np.uint8)
+                for _ in range(5)]
+        for dtype in ("float32", "bfloat16"):
+            root = tmp / f"clips_{dtype}"
+            (root / "clipA").mkdir(parents=True)
+            for i, img in enumerate(clip):
+                imageio.imwrite(str(root / "clipA" / f"{i:05d}.png"), img)
+            _, text, wall = run_cli([
+                "--phase", "test_custom", "--multiple_MFI", "4",
+                "--fwarp_shift_d", str(SHIFT_D), "--custom_path", str(root),
+                "--checkpoint_dir", str(tmp / "ckpt"),
+                "--compute_dtype", dtype])
+            out_dir = root / "clipA_sharply_interpolated_x4"
+            names = sorted(os.listdir(out_dir))
+            want_names = sorted([f"{w:05d}_{j:03d}.png" for w in (1, 2)
+                                 for j in range(3)]
+                                + ["00001.png", "00002.png", "00003.png"])
+            check(names == want_names, f"test_custom {dtype} wrote {names}")
+            for n in names:
+                img = imageio.imread(str(out_dir / n))
+                check(img.shape == (CUSTOM_H, CUSTOM_W, 3),
+                      f"{n}: {img.shape}")
+            say(f"[6 eval] test_custom x4 at {CUSTOM_H}x{CUSTOM_W}, {dtype}: "
+                f"{len(names)} PNGs in clipA_sharply_interpolated_x4, cli "
+                f"wall {wall:.2f} s")
         ev = runs[1]
         say(f"[6 eval] x8 DeMFI-Net_rb(5,3) {H}x{W} float32 through "
             f"demfi_torch.main.cli --phase test, second run: "
@@ -1461,77 +1785,103 @@ def main() -> int:
         train = train_phase(torch, dev, tmp / "data", tmp, args.profile)
 
     # ---------------------------------------------------------- results
-    def summary(kname, source, replaces, per_window, launches):
-        mine = [r for r in rows if r["kernel"] == kname]
-        on_path = [r for r in mine if r["per_window"]]
+    def entry(name, source, replaces, launches, on_path, weight, extra):
+        """One kernel of the kernels line: its times on its path summed
+        over the path's launches (``weight`` of each row)."""
+        mine = [r for r in on_path if r[weight]]
 
-        def per_win(key):
-            if any(r[key] is None for r in on_path):
+        def total(key):
+            if any(r[key] is None for r in mine):
                 return None
-            return sum(r[key] * r["per_window"] for r in on_path)
-        check(launches > 0, f"{kname}: never launched on its main path")
+            return sum(r[key] * r[weight] for r in mine)
+        check(launches > 0, f"{name}: never launched on its main path")
         return dict(
-            name=kname, route="cuda", source=source, replaces=replaces,
-            launches=launches, launches_per_window=per_window,
-            launches_eval_path=eval_launches[kname],
-            launches_train_path=train["counts"][kname],
-            max_abs_err=max(r["max_abs_err"] for r in mine),
-            ms=per_win("ms"), plain_ms=per_win("plain_ms"),
-            bound_ms=per_win("bound_ms"),
-            bound_by="bytes" if all(r["bound_by"] == "bytes" for r in on_path)
+            name=name, route="cuda", source=source, replaces=replaces,
+            launches=launches, max_abs_err=max(r["max_abs_err"]
+                                               for r in on_path),
+            ms=total("ms"), plain_ms=total("plain_ms"),
+            bound_ms=total("bound_ms"),
+            bound_by="bytes" if all(r["bound_by"] == "bytes" for r in mine)
             else "operations",
-            library_ms=per_win("library_ms"),
-            times_are="per window, summed over its launches",
-            shapes=mine)
+            library_ms=total("library_ms"), **extra, shapes=on_path)
+
+    def summary(kname, source, replaces, per_window, launches):
+        return entry(kname, source, replaces, launches,
+                     [r for r in rows if r["kernel"] == kname
+                      and r.get("image_dtype", "float32") == "float32"],
+                     "per_window", dict(
+                         launches_per_window=per_window,
+                         launches_eval_path=eval_launches[kname],
+                         launches_train_path=train["counts"][kname],
+                         times_are="per window, summed over its launches"))
 
     def bwd_summary(kname, source, replaces):
         """A backward kernel: launches from phase 7(c)'s run of the train
         path, times per train step summed over its launches."""
-        mine = [r for r in train["bwd_rows"] if r["kernel"] == kname]
-        on_path = [r for r in mine if r["per_step"]]
-        check(train["counts"][kname] > 0,
-              f"{kname}: never launched on the train path")
+        return entry(kname, source, replaces, train["counts"][kname],
+                     [r for r in train["bwd_rows"] if r["kernel"] == kname
+                      and r.get("image_dtype", "float32") == "float32"],
+                     "per_step", dict(
+                         launches_per_step=train["counts"][kname]
+                         // OVERFIT_STEPS,
+                         times_are="per train step, summed over its "
+                                   "launches"))
 
-        def per_step(key):
-            if any(r[key] is None for r in on_path):
-                return None
-            return sum(r[key] * r["per_step"] for r in on_path)
-        return dict(
-            name=kname, route="cuda", source=source, replaces=replaces,
-            launches=train["counts"][kname],
-            launches_per_step=train["counts"][kname] // OVERFIT_STEPS,
-            max_abs_err=max(r["max_abs_err"] for r in mine),
-            max_rel_err=max(r["max_rel_err"] for r in mine),
-            ms=per_step("ms"), plain_ms=per_step("plain_ms"),
-            bound_ms=per_step("bound_ms"),
-            bound_by="bytes" if all(r["bound_by"] == "bytes" for r in on_path)
-            else "operations",
-            library_ms=per_step("library_ms"),
-            times_are="per train step, summed over its launches",
-            shapes=mine)
-
+    gather_src = "demfi_torch/csrc/bilinear_gather.cu"
+    gather_bwd_src = "demfi_torch/csrc/bilinear_gather_bwd.cu"
+    gather_bwd_replaces = ("demfi_tpu/ops/warp.py:448 (no Pallas kernel: the "
+                           "vjp of _bwarp_xla, and of _bilinear_abs_xla :494)")
     say(json.dumps({"kernels": [
-        summary("bilinear_gather", "demfi_torch/csrc/bilinear_gather.cu",
+        summary("bilinear_gather", gather_src,
                 "demfi_tpu/ops/pallas_kernels.py:58", GATHERS_PER_WINDOW,
                 counts["bilinear_gather"]),
+        entry("bilinear_gather (bfloat16 image)", gather_src,
+              "demfi_tpu/ops/pallas_kernels.py:58",
+              bf16_counts["bilinear_gather"],
+              [r for r in rows if r["kernel"] == "bilinear_gather"
+               and r["image_dtype"] == "bfloat16"],
+              "per_window_bf16", dict(
+                  launches_per_window=BF16_GATHERS_PER_WINDOW,
+                  launches_eval_path=bf16_eval["bilinear_gather"],
+                  launches_train_path=train["bf16_counts"]["bilinear_gather"],
+                  times_are="per bfloat16 window, summed over its launches "
+                            "of this instantiation")),
         summary("fwarp_splat", "demfi_torch/csrc/fwarp_splat.cu",
                 "demfi_tpu/ops/pallas_kernels.py:273", SPLATS_PER_WINDOW,
                 counts["fwarp_splat"]),
         summary("fwarp_shift", "demfi_torch/csrc/fwarp_shift.cu",
                 "demfi_tpu/ops/pallas_kernels.py:479", SPLATS_PER_WINDOW,
                 eval_launches["fwarp_shift"]),
-        bwd_summary("bilinear_gather_bwd",
-                    "demfi_torch/csrc/bilinear_gather_bwd.cu",
-                    "demfi_tpu/ops/warp.py:448 (no Pallas kernel: the vjp of "
-                    "_bwarp_xla, and of _bilinear_abs_xla :494)"),
+        bwd_summary("bilinear_gather_bwd", gather_bwd_src,
+                    gather_bwd_replaces),
+        entry("bilinear_gather_bwd (bfloat16 image)", gather_bwd_src,
+              gather_bwd_replaces, train["bf16_counts"]["bilinear_gather_bwd"],
+              [r for r in train["bwd_rows"]
+               if r["kernel"] == "bilinear_gather_bwd"
+               and r["image_dtype"] == "bfloat16"],
+              "per_step_bf16", dict(
+                  launches_per_step=train["bf16_counts"]["bilinear_gather_bwd"]
+                  // OVERFIT_STEPS,
+                  times_are="per bfloat16 train step, summed over its "
+                            "launches of this instantiation")),
         bwd_summary("fwarp_splat_bwd", "demfi_torch/csrc/fwarp_splat_bwd.cu",
                     "demfi_tpu/ops/warp.py:549 (no Pallas kernel: the vjp of "
                     "_fwarp_xla)"),
     ], "card": card, "splat_tile_spread": tile_spread,
         "windows_per_s": 1 / s_win,
         "frames_per_s": (M - 1) / s_win, "window_seconds": secs,
+        "device_busy_share": busy,
         "peak_bytes": peak_bytes,
         "bytes_per_pixel_instant": per_pi,
+        "bf16": {"windows_per_s": 1 / s_win16, "window_seconds": secs16,
+                 "device_busy_share": busy16, "peak_bytes": peak16,
+                 "bytes_per_pixel_instant": per_pi16,
+                 "psnr_vs_float32_db": psnr16,
+                 "expected_shift_db": shift16, "certified": certified16,
+                 "label": label16, "card_vs_cpu_moments_gap": worst16[0],
+                 "eval_windows_per_s": n_windows / st16.wall_seconds,
+                 "eval_metrics": list(result16[:5])},
+        "cudnn_benchmark_window_seconds": bench_secs,
         "eval": {k: [r[k] for r in runs] for k in (
             "wall", "stream_span", "decode", "metrics", "encode",
             "cli_wall")},
@@ -1539,7 +1889,7 @@ def main() -> int:
         "eval_windows_per_s": n_windows / ev["wall"],
         "eval_engine_stream_span_share": ev["stream_span"] / ev["wall"],
         "train": {k: v for k, v in train.items()
-                  if k not in ("bwd_rows", "counts")}}))
+                  if k not in ("bwd_rows", "counts", "bf16_counts")}}))
     say(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

@@ -88,6 +88,11 @@ class DeMFIConfig:
     # ---- device ----
     # "cuda" (the default: a run without a card fails) or "cpu".
     device: str = "cuda"
+    # Compute dtype of the convolutions: "float32" or "bfloat16". The
+    # parameters, their gradients, the optimizer's state and the
+    # checkpoints stay float32 either way; flows, occlusion logits and t
+    # stay float32 (the JAX package's serving mode).
+    compute_dtype: str = "float32"
     # Window of the deterministic forward warp in CFR. 0: the atomic
     # splat (exact for any motion, bits vary from run to run). N > 0: the
     # atomic-free stencil kernel wherever max|flow| <= N - 1 (the same

@@ -1,4 +1,6 @@
-// Bilinear zero-padded gather, float32, NCHW, for Hopper (sm_90a).
+// Bilinear zero-padded gather, NCHW, for Hopper (sm_90a): float32 or
+// bfloat16 image values, float32 coordinates, weights, accumulation and
+// output.
 //
 // Replaces the TPU kernel _gather_kernel / bilinear_gather_tpu
 // (demfi_tpu/ops/pallas_kernels.py:58, :145), used there by bwarp_tpu
@@ -19,6 +21,14 @@
 // two image and two coordinate pointers of n batch elements each, written
 // to one output of 2n batch elements, so that the caller concatenates
 // nothing.
+//
+// Image values: float32 (demfi_bilinear_gather_f32) or bfloat16
+// (demfi_bilinear_gather_bf16, the bf16 model's feature and image warps),
+// a template parameter of the kernel. A bf16 tap is a 2-byte load widened
+// to float32 exactly (its bits shifted into the high half); everything
+// after the load is the float32 kernel's, so the in-image weight, the
+// 0.999 mask, `ones` and `out` stay float32 whatever the image's type (the
+// JAX package's _bilinear_zeros casts each tap to float32 the same way).
 //
 // Bound: device-memory bytes. It does about 2 flops per byte it must
 // move (read img and coords once, write out once), far below the card's
@@ -65,23 +75,30 @@ constexpr int kPX = 2;      // query pixels of a thread, kTX apart
 constexpr int kWideTile = 2;   // channels per tile where C > 4
 constexpr int kChunk = 8;      // channels per block where C > 4
 
+// An image value as float32: bfloat16 is stored as its 16 bits, the high
+// half of the float32 with the same value.
+__device__ __forceinline__ float tap_f32(const float* p) { return __ldg(p); }
+__device__ __forceinline__ float tap_f32(const uint16_t* p) {
+  return __uint_as_float((uint32_t)__ldg(p) << 16);
+}
+
 // The four taps of kPX pixels, CT channels: out = sum of img * weight in
 // the plain version's order, times the mask.
-template <int CT>
+template <int CT, typename T>
 __device__ __forceinline__ void gather_tile(
-    const float* __restrict__ p, float* __restrict__ dst, int hw, int nq,
+    const T* __restrict__ p, float* __restrict__ dst, int hw, int nq,
     const int (&off)[kPX][4], const float (&wt)[kPX][4],
     const float (&mask)[kPX], const bool (&live)[kPX], int relative) {
   float v[CT][kPX];
 #pragma unroll
   for (int k = 0; k < CT; ++k) {
-    const float* pk = p + (int64_t)k * hw;
+    const T* pk = p + (int64_t)k * hw;
 #pragma unroll
     for (int j = 0; j < kPX; ++j) {
-      float t = __fmul_rn(__ldg(pk + off[j][0]), wt[j][0]);
-      t = __fadd_rn(t, __fmul_rn(__ldg(pk + off[j][1]), wt[j][1]));
-      t = __fadd_rn(t, __fmul_rn(__ldg(pk + off[j][2]), wt[j][2]));
-      t = __fadd_rn(t, __fmul_rn(__ldg(pk + off[j][3]), wt[j][3]));
+      float t = __fmul_rn(tap_f32(pk + off[j][0]), wt[j][0]);
+      t = __fadd_rn(t, __fmul_rn(tap_f32(pk + off[j][1]), wt[j][1]));
+      t = __fadd_rn(t, __fmul_rn(tap_f32(pk + off[j][2]), wt[j][2]));
+      t = __fadd_rn(t, __fmul_rn(tap_f32(pk + off[j][3]), wt[j][3]));
       if (relative) t = __fmul_rn(t, mask[j]);
       v[k][j] = t;
     }
@@ -95,12 +112,13 @@ __device__ __forceinline__ void gather_tile(
   }
 }
 
-// CT: channels per tile. The block's chunk of channels is [c_lo, c_hi),
+// CT: channels per tile; T: the image's element type (float, or uint16_t
+// holding bfloat16). The block's chunk of channels is [c_lo, c_hi),
 // c_lo = (blockIdx.z % chunks) * cpb.
-template <int CT>
+template <int CT, typename T>
 __global__ void __launch_bounds__(kTX * kTY)
-bilinear_gather_kernel(const float* __restrict__ img_a,
-                       const float* __restrict__ img_b,
+bilinear_gather_kernel(const T* __restrict__ img_a,
+                       const T* __restrict__ img_b,
                        const float* __restrict__ coords_a,
                        const float* __restrict__ coords_b,
                        float* __restrict__ out, float* __restrict__ ones,
@@ -114,7 +132,7 @@ bilinear_gather_kernel(const float* __restrict__ img_a,
   const int c_hi = min(C, c_lo + cpb);
   const bool second = zb >= n;               // the pair's second half
   const int b = second ? zb - n : zb;
-  const float* img = second ? img_b : img_a;
+  const T* img = second ? img_b : img_a;
   const float* coords = second ? coords_b : coords_a;
   const int nq = Hq * Wq;
   const int hw = H * W;
@@ -168,16 +186,16 @@ bilinear_gather_kernel(const float* __restrict__ img_a,
     mask[j] = (!relative || in_img[j] >= 0.999f) ? 1.0f : 0.0f;
   }
 
-  const float* p = img + ((int64_t)b * C + c_lo) * hw;
+  const T* p = img + ((int64_t)b * C + c_lo) * hw;
   float* dst = out + ((int64_t)zb * C + c_lo) * nq + q0;
   int c = c_lo;
   for (; c + CT <= c_hi; c += CT) {
-    gather_tile<CT>(p, dst, hw, nq, off, wt, mask, live, relative);
+    gather_tile<CT, T>(p, dst, hw, nq, off, wt, mask, live, relative);
     p += (int64_t)CT * hw;
     dst += (int64_t)CT * nq;
   }
   for (; c < c_hi; ++c) {
-    gather_tile<1>(p, dst, hw, nq, off, wt, mask, live, relative);
+    gather_tile<1, T>(p, dst, hw, nq, off, wt, mask, live, relative);
     p += hw;
     dst += nq;
   }
@@ -189,18 +207,17 @@ bilinear_gather_kernel(const float* __restrict__ img_a,
   }
 }
 
-}  // namespace
-
 // One gather of one or two halves. img_a [n,C,H,W] with coords_a
 // [n,2,Hq,Wq]; img_b, coords_b: the second half of the same shapes, or
 // both null. out [halves*n,C,Hq,Wq]; ones [halves*n,1,Hq,Wq] or null
-// (relative mode only: the in-image weight plane). All float32,
-// contiguous, on one device; H*W and Hq*Wq below 2^31. Launches on
-// `stream` and returns cudaGetLastError().
-extern "C" int demfi_bilinear_gather_f32(
-    const float* img_a, const float* img_b, const float* coords_a,
-    const float* coords_b, float* out, float* ones, int n, int C, int H,
-    int W, int Hq, int Wq, int relative, void* stream) {
+// (relative mode only: the in-image weight plane). The image T, the rest
+// float32; all contiguous, on one device; H*W and Hq*Wq below 2^31.
+// Launches on `stream` and returns cudaGetLastError().
+template <typename T>
+int launch_gather(const T* img_a, const T* img_b, const float* coords_a,
+                  const float* coords_b, float* out, float* ones, int n,
+                  int C, int H, int W, int Hq, int Wq, int relative,
+                  void* stream) {
   if (n <= 0 || Hq <= 0 || Wq <= 0) return (int)cudaSuccess;
   if ((img_b == nullptr) != (coords_b == nullptr) || H <= 0 || W <= 0 ||
       (int64_t)H * W > INT32_MAX || (int64_t)Hq * Wq > INT32_MAX)
@@ -216,7 +233,7 @@ extern "C" int demfi_bilinear_gather_f32(
   const dim3 block(kTX, kTY);
   const cudaStream_t s = (cudaStream_t)stream;
 #define DEMFI_GATHER(CT)                                                     \
-  bilinear_gather_kernel<CT><<<grid, block, 0, s>>>(                         \
+  bilinear_gather_kernel<CT, T><<<grid, block, 0, s>>>(                      \
       img_a, img_b, coords_a, coords_b, out, ones, n, C, H, W, Hq, Wq, cpb,  \
       chunks, relative)
   switch (C) {
@@ -228,4 +245,24 @@ extern "C" int demfi_bilinear_gather_f32(
   }
 #undef DEMFI_GATHER
   return (int)cudaGetLastError();
+}
+
+}  // namespace
+
+// float32 image values.
+extern "C" int demfi_bilinear_gather_f32(
+    const float* img_a, const float* img_b, const float* coords_a,
+    const float* coords_b, float* out, float* ones, int n, int C, int H,
+    int W, int Hq, int Wq, int relative, void* stream) {
+  return launch_gather(img_a, img_b, coords_a, coords_b, out, ones, n, C, H,
+                       W, Hq, Wq, relative, stream);
+}
+
+// bfloat16 image values (their 16 bits), float32 everything else.
+extern "C" int demfi_bilinear_gather_bf16(
+    const uint16_t* img_a, const uint16_t* img_b, const float* coords_a,
+    const float* coords_b, float* out, float* ones, int n, int C, int H,
+    int W, int Hq, int Wq, int relative, void* stream) {
+  return launch_gather(img_a, img_b, coords_a, coords_b, out, ones, n, C, H,
+                       W, Hq, Wq, relative, stream);
 }

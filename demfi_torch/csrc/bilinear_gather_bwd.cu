@@ -1,5 +1,5 @@
-// Backward of the bilinear zero-padded gather, float32, NCHW, for Hopper
-// (sm_90a).
+// Backward of the bilinear zero-padded gather, NCHW, for Hopper (sm_90a):
+// float32 or bfloat16 image values, float32 everything else.
 //
 // No TPU kernel: the JAX package's gather fast paths are custom_vjps whose
 // backward recomputes through the exact XLA op (demfi_tpu/ops/warp.py:
@@ -23,6 +23,15 @@
 // coordinate and grad_out pointers of n batch elements each, written to
 // grad_img [2n,C,H,W] and grad_coords [2n,2,Hq,Wq].
 //
+// Image values: float32 (demfi_bilinear_gather_bwd_f32) or bfloat16
+// (demfi_bilinear_gather_bwd_bf16), as in the forward: a bf16 tap is
+// widened to float32 exactly. grad_coords is float32 either way. grad_img
+// has the image's type; at bfloat16 the atomics add into a zero-filled
+// float32 scratch plane, and a second launch rounds it to bfloat16 once
+// (round to nearest even), so no sum rounds to bfloat16 on the way (the
+// JAX package's vjp scatter-adds bfloat16 contributions; this is the
+// exacter of the two).
+//
 // Bound: device-memory bytes (read grad_out, coords and the taps of img
 // once, write grad_img and grad_coords once; about 5 flops per byte).
 // Design, simple on purpose: a 2-D grid over the query grid, one thread
@@ -32,6 +41,7 @@
 // run to run). int32 offsets inside a plane, as in the forward; the weight
 // arithmetic is the forward's (round-to-nearest intrinsics in the plain
 // version's order), so the mask agrees with the forward's bit for bit.
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -39,10 +49,18 @@ namespace {
 
 constexpr int kTX = 32;
 constexpr int kTY = 8;
+constexpr int kCastThreads = 256;
 
+// An image value as float32 (bfloat16 is stored as its 16 bits).
+__device__ __forceinline__ float tap_f32(const float* p) { return __ldg(p); }
+__device__ __forceinline__ float tap_f32(const uint16_t* p) {
+  return __uint_as_float((uint32_t)__ldg(p) << 16);
+}
+
+template <typename T>
 __global__ void __launch_bounds__(kTX * kTY)
-bilinear_gather_bwd_kernel(const float* __restrict__ img_a,
-                           const float* __restrict__ img_b,
+bilinear_gather_bwd_kernel(const T* __restrict__ img_a,
+                           const T* __restrict__ img_b,
                            const float* __restrict__ coords_a,
                            const float* __restrict__ coords_b,
                            const float* __restrict__ gout_a,
@@ -56,7 +74,7 @@ bilinear_gather_bwd_kernel(const float* __restrict__ img_a,
   const int zb = blockIdx.z;                 // batch element over both halves
   const bool second = zb >= n;
   const int b = second ? zb - n : zb;
-  const float* img = second ? img_b : img_a;
+  const T* img = second ? img_b : img_a;
   const float* coords = second ? coords_b : coords_a;
   const float* gout = second ? gout_b : gout_a;
   const int nq = Hq * Wq;
@@ -98,17 +116,17 @@ bilinear_gather_bwd_kernel(const float* __restrict__ img_a,
 
   float gcx = 0.0f, gcy = 0.0f;
   if (mask != 0.0f) {
-    const float* p = img + (int64_t)b * C * hw;
+    const T* p = img + (int64_t)b * C * hw;
     const float* g = gout + (int64_t)b * C * nq + q;
     float* gi = grad_img + (int64_t)zb * C * hw;
     for (int c = 0; c < C; ++c) {
       const float go = __ldg(g + (int64_t)c * nq);
-      const float* pc = p + (int64_t)c * hw;
+      const T* pc = p + (int64_t)c * hw;
       float* gic = gi + (int64_t)c * hw;
 #pragma unroll
       for (int k = 0; k < 4; ++k) {
         if (wt[k] == 0.0f && dwx[k] == 0.0f && dwy[k] == 0.0f) continue;
-        const float tap = __ldg(pc + off[k]);
+        const float tap = tap_f32(pc + off[k]);
         gcx += go * tap * dwx[k];
         gcy += go * tap * dwy[k];
         if (wt[k] != 0.0f) atomicAdd(gic + off[k], go * wt[k]);
@@ -120,20 +138,27 @@ bilinear_gather_bwd_kernel(const float* __restrict__ img_a,
   gc[nq] = gcy;
 }
 
-}  // namespace
+// grad_img's float32 sums rounded to bfloat16, once.
+__global__ void __launch_bounds__(kCastThreads)
+round_to_bf16_kernel(const float* __restrict__ src,
+                     __nv_bfloat16* __restrict__ dst, int64_t n) {
+  const int64_t i = (int64_t)blockIdx.x * kCastThreads + threadIdx.x;
+  if (i < n) dst[i] = __float2bfloat16_rn(src[i]);
+}
 
 // The vjp of one gather of one or two halves. img_a [n,C,H,W], coords_a
 // [n,2,Hq,Wq] and gout_a [n,C,Hq,Wq]; img_b, coords_b, gout_b: the second
-// half of the same shapes, or all null. grad_img [halves*n,C,H,W], zeroed
-// by the caller; grad_coords [halves*n,2,Hq,Wq], written in full. All
-// float32, contiguous, on one device; H*W and Hq*Wq below 2^31. Launches
-// on `stream` and returns cudaGetLastError().
-extern "C" int demfi_bilinear_gather_bwd_f32(
-    const float* img_a, const float* img_b, const float* coords_a,
-    const float* coords_b, const float* gout_a, const float* gout_b,
-    float* grad_img, float* grad_coords, int n, int C, int H, int W, int Hq,
-    int Wq, int relative, void* stream) {
-  if (n <= 0 || Hq <= 0 || Wq <= 0) return (int)cudaSuccess;
+// half of the same shapes, or all null. grad_acc [halves*n,C,H,W] float32,
+// zeroed by the caller, takes the atomics; grad_coords [halves*n,2,Hq,Wq],
+// written in full. The image T, the rest float32; all contiguous, on one
+// device; H*W and Hq*Wq below 2^31. Launches on `stream` and returns
+// cudaGetLastError().
+template <typename T>
+int launch_gather_bwd(const T* img_a, const T* img_b, const float* coords_a,
+                      const float* coords_b, const float* gout_a,
+                      const float* gout_b, float* grad_acc,
+                      float* grad_coords, int n, int C, int H, int W, int Hq,
+                      int Wq, int relative, cudaStream_t stream) {
   const bool pair = img_b != nullptr;
   if (pair != (coords_b != nullptr) || pair != (gout_b != nullptr) ||
       H <= 0 || W <= 0 || C < 0 || (int64_t)H * W > INT32_MAX ||
@@ -144,9 +169,46 @@ extern "C" int demfi_bilinear_gather_bwd_f32(
   if (gy > 65535 || batch > 65535) return (int)cudaErrorInvalidConfiguration;
   const dim3 grid((unsigned)((Wq + kTX - 1) / kTX), (unsigned)gy,
                   (unsigned)batch);
-  bilinear_gather_bwd_kernel<<<grid, dim3(kTX, kTY), 0,
-                               (cudaStream_t)stream>>>(
-      img_a, img_b, coords_a, coords_b, gout_a, gout_b, grad_img,
+  bilinear_gather_bwd_kernel<T><<<grid, dim3(kTX, kTY), 0, stream>>>(
+      img_a, img_b, coords_a, coords_b, gout_a, gout_b, grad_acc,
       grad_coords, n, C, H, W, Hq, Wq, relative);
+  return (int)cudaGetLastError();
+}
+
+}  // namespace
+
+// float32 image values: grad_img [halves*n,C,H,W] float32, zeroed by the
+// caller, takes the atomics directly.
+extern "C" int demfi_bilinear_gather_bwd_f32(
+    const float* img_a, const float* img_b, const float* coords_a,
+    const float* coords_b, const float* gout_a, const float* gout_b,
+    float* grad_img, float* grad_coords, int n, int C, int H, int W, int Hq,
+    int Wq, int relative, void* stream) {
+  if (n <= 0 || Hq <= 0 || Wq <= 0) return (int)cudaSuccess;
+  return launch_gather_bwd(img_a, img_b, coords_a, coords_b, gout_a, gout_b,
+                           grad_img, grad_coords, n, C, H, W, Hq, Wq,
+                           relative, (cudaStream_t)stream);
+}
+
+// bfloat16 image values (their 16 bits): the atomics add into grad_acc
+// [halves*n,C,H,W] float32, zeroed by the caller, and a second launch
+// writes it to grad_img [halves*n,C,H,W] bfloat16.
+extern "C" int demfi_bilinear_gather_bwd_bf16(
+    const uint16_t* img_a, const uint16_t* img_b, const float* coords_a,
+    const float* coords_b, const float* gout_a, const float* gout_b,
+    float* grad_acc, void* grad_img, float* grad_coords, int n, int C, int H,
+    int W, int Hq, int Wq, int relative, void* stream) {
+  if (n <= 0 || Hq <= 0 || Wq <= 0) return (int)cudaSuccess;
+  const cudaStream_t s = (cudaStream_t)stream;
+  const int rc = launch_gather_bwd(img_a, img_b, coords_a, coords_b, gout_a,
+                                   gout_b, grad_acc, grad_coords, n, C, H, W,
+                                   Hq, Wq, relative, s);
+  if (rc != (int)cudaSuccess) return rc;
+  const int64_t total = (int64_t)n * (img_b != nullptr ? 2 : 1) * C * H * W;
+  if (total == 0) return (int)cudaSuccess;
+  const int64_t blocks = (total + kCastThreads - 1) / kCastThreads;
+  if (blocks > INT32_MAX) return (int)cudaErrorInvalidConfiguration;
+  round_to_bf16_kernel<<<(unsigned)blocks, kCastThreads, 0, s>>>(
+      grad_acc, (__nv_bfloat16*)grad_img, total);
   return (int)cudaGetLastError();
 }

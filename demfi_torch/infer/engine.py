@@ -23,7 +23,9 @@ Inside, the model works on NCHW tensors.
 
 Float32 parity: the engine turns TF32 off for cuDNN convolutions and
 cuBLAS matmuls, process-wide (:func:`demfi_torch.disable_tf32`, which
-the train step calls too).
+the train step calls too). A bfloat16 model's results reach the host as
+float32, as the JAX engine's do: they are cast on the device, before
+the copy (numpy has no bfloat16).
 """
 from __future__ import annotations
 
@@ -36,12 +38,13 @@ import torch
 from demfi_torch import disable_tf32, nchw_to_nhwc, resolve_device
 from demfi_torch.models.demfi import DeMFINet
 
-# Device bytes per pixel-instant of a float32 window batch: the peak
-# memory allocated above the weights while serving one 352x640 x8 window
-# (7 instants), over 352*640*7. Measured by chip_smoke.py on an NVIDIA
-# H100 80GB HBM3 at its 700 W power limit: 19,857 B. The t-chunk cap is
-# the free device memory (torch.cuda.mem_get_info) times 0.78 over this.
-BYTES_PER_PIXEL_INSTANT = 19_857
+# Device bytes per pixel-instant of a window batch, by compute dtype: the
+# peak memory allocated above the weights while serving one 352x640 x8
+# window (7 instants), over 352*640*7. Measured by chip_smoke.py (phases
+# 4 and 4b) on an NVIDIA H100 80GB HBM3 at its 700 W power limit:
+# 19,857 B at float32, 4,152 B at bfloat16. The t-chunk cap is the free
+# device memory (torch.cuda.mem_get_info) times 0.78 over this.
+BYTES_PER_PIXEL_INSTANT = {torch.float32: 19_857, torch.bfloat16: 4_152}
 _MEMORY_SHARE = 0.78
 
 
@@ -219,7 +222,9 @@ class InferenceEngine:
                     fgac_src_01=s01[0], fgac_ref_01=s01[1],
                     fgac_warp_01=s01[2], fgac_fcw_01=s01[3],
                     flow_01=vflows[0], flow_10=vflows[1])
-        return {k: nchw_to_nhwc(v) for k, v in sel.items()}
+        # float32 on the device, so the host gets float32 (a no-op for a
+        # float32 model)
+        return {k: nchw_to_nhwc(v).float() for k, v in sel.items()}
 
     @staticmethod
     def _results(out: dict, n: int, m: int) -> List[WindowResult]:
@@ -298,7 +303,8 @@ class InferenceEngine:
         free, _ = torch.cuda.mem_get_info(self.device)
         free += (torch.cuda.memory_reserved(self.device)
                  - torch.cuda.memory_allocated(self.device))
-        return int(free * _MEMORY_SHARE / BYTES_PER_PIXEL_INSTANT)
+        return int(free * _MEMORY_SHARE
+                   / BYTES_PER_PIXEL_INSTANT[self.model.compute_dtype])
 
     def _effective_t_chunk(self, h, w, m, test_patch=(1, 1), n_windows=1):
         """User cap if given, else the memory-derived one (per-tile pixels

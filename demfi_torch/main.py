@@ -6,8 +6,11 @@ Keeps the reference CLI surface:
   python -m demfi_torch.main --phase test        --multiple_MFI 8
   python -m demfi_torch.main --phase test_custom --custom_path ./custom_path
 
-plus ``--device`` (``cuda``, the default, or ``cpu``) and
-``--fwarp_shift_d`` (window of the deterministic forward warp). The
+plus ``--device`` (``cuda``, the default, or ``cpu``),
+``--fwarp_shift_d`` (window of the deterministic forward warp) and
+``--compute_dtype`` (``float32``, the default, or ``bfloat16``: the
+convolutions' dtype in every phase; parameters and checkpoints stay
+float32). The
 checkpoints are ``<checkpoint_dir>/<net_type>_exp<N>/<net_type>_exp<N>_``
 ``{latest,best_PSNR,epc<N>}.pt`` in the reference's ``.pt`` layout;
 training writes them and resumes from them (``--auto_resume``,
@@ -121,6 +124,10 @@ def parse_args(argv=None) -> DeMFIConfig:
                         "takes the atomic splat (bits vary from run to "
                         "run); D > 0 takes the atomic-free kernel wherever "
                         "max|flow| <= D - 1 (the same bits every run)")
+    p.add_argument("--compute_dtype", type=str, default=d.compute_dtype,
+                   choices=["float32", "bfloat16"],
+                   help="dtype of the convolutions; parameters, gradients, "
+                        "the optimizer's state and checkpoints stay float32")
     a = p.parse_args(argv)
 
     if a.img_ch != 3:
@@ -179,7 +186,7 @@ def _save_debug(cfg: DeMFIConfig, model, it: int, frames, ts) -> None:
         (out.st_final, out.st_prime)))
 
     def hwc(x):
-        return x[0].detach().permute(1, 2, 0).cpu().numpy()
+        return x[0].detach().permute(1, 2, 0).float().cpu().numpy()
     for name, img in ((f"{tag}_Ovld", hwc(out.ovlp_b0b1)),
                       (f"{tag}_S0_Prd", hwc(s0)),
                       (f"{tag}_t_{t0}_Prd", hwc(st)),

@@ -12,12 +12,23 @@ into the batch (identical math).
 ``synthesize`` (t-dependent), so all instants of a window share one
 backbone pass. The boosting loop is a plain Python loop; the Mixer's
 reference branch is loop-invariant and is encoded once before it.
-Flows stay float32 throughout.
+
+Compute dtype (``DeMFIConfig.compute_dtype``), as the JAX model places
+it: every convolution casts its input, weight and bias to the model's
+compute dtype inside ``forward`` (flax's ``nn.Conv(dtype=...)``), so the
+parameters, their gradients and the ``state_dict`` stay float32. Flows,
+occlusion logits and t stay float32 (taken from a compute-dtype tensor
+where the JAX model takes them, so they carry its rounding); FGAC's
+correlation runs in float32; the warps gather compute-dtype values with
+float32 weights and return float32, and the blends that follow run in
+float32 and are cast back only where the JAX model casts them. Pieces
+are cast before each ``torch.cat`` where the JAX model concatenates cast
+operands (``torch.cat`` promotes a mixed list to float32).
 """
 from __future__ import annotations
 
 import dataclasses
-from typing import List, Tuple
+from typing import Dict, List, Tuple
 
 import torch
 import torch.nn as nn
@@ -32,23 +43,67 @@ from demfi_torch.ops import (
 )
 
 
-def _conv(cin: int, cout: int, k=3, stride: int = 1, pad=None) -> nn.Conv2d:
+COMPUTE_DTYPES: Dict[str, torch.dtype] = {"float32": torch.float32,
+                                           "bfloat16": torch.bfloat16}
+
+
+def _conv_in(dt: torch.dtype, conv, x: torch.Tensor, weight: torch.Tensor,
+             bias: torch.Tensor) -> torch.Tensor:
+    """``conv(x, weight, bias)`` in the compute dtype ``dt``. At float32
+    the bias is fused into the convolution. At bfloat16 the input, weight
+    and bias are cast and the bias is added after the convolution, in
+    bfloat16, as flax's ``nn.Conv(dtype=bfloat16)`` does: the convolution
+    rounds once and the bias add once more. Fusing the bias rounds once,
+    and that one rounding moves the bfloat16 network's outputs as far from
+    the JAX model's as bfloat16 moves them from float32."""
+    if dt == torch.float32:
+        return conv(x, weight, bias)
+    return conv(x.to(dt), weight.to(dt), None) + bias.to(dt)[:, None, None]
+
+
+class _Conv(nn.Conv2d):
+    """nn.Conv2d in the model's compute dtype (:func:`_conv_in`); the
+    parameters stay float32."""
+
+    compute_dtype = torch.float32     # DeMFINet sets it on each instance
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return _conv_in(self.compute_dtype, self._conv_forward, x,
+                        self.weight, self.bias)
+
+
+def _conv(cin: int, cout: int, k=3, stride: int = 1, pad=None) -> _Conv:
     if pad is None:
         pad = tuple((kk - 1) // 2 for kk in k) if isinstance(k, tuple) \
             else (k - 1) // 2
-    return nn.Conv2d(cin, cout, k, stride=stride, padding=pad, bias=True)
+    return _Conv(cin, cout, k, stride=stride, padding=pad, bias=True)
 
 
 class _Conv3dT1(nn.Conv3d):
     """The reference's Conv3d with kernel [1, 3, 3]: keeps the 5-D weight
     (checkpoint keys and shapes) and runs as a 2-D conv on [B*T, C, H, W]
-    with the frames folded into the batch."""
+    with the frames folded into the batch, in the compute dtype."""
+
+    compute_dtype = torch.float32
 
     def __init__(self, cin: int, cout: int):
         super().__init__(cin, cout, (1, 3, 3), padding=(0, 1, 1), bias=True)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return F.conv2d(x, self.weight[:, :, 0], self.bias, padding=1)
+        return _conv_in(self.compute_dtype,
+                        lambda i, k, b: F.conv2d(i, k, b, padding=1), x,
+                        self.weight[:, :, 0], self.bias)
+
+
+def _sigmoid(x: torch.Tensor) -> torch.Tensor:
+    """The logistic as the JAX model computes it: at float32
+    ``torch.sigmoid``; at bfloat16 ``1 / (1 + exp(-x))`` with every step
+    rounded to bfloat16, which is what XLA lowers ``jax.nn.sigmoid`` of a
+    bfloat16 array to (``torch.sigmoid`` rounds once, and differs in 30 %
+    of the values)."""
+    if x.dtype == torch.float32:
+        return torch.sigmoid(x)
+    return 1.0 / (1.0 + torch.exp(-x))
 
 
 def _minmax_norm(v: torch.Tensor) -> torch.Tensor:
@@ -157,7 +212,11 @@ class ResBlock(nn.Module):
 class FGAC(nn.Module):
     """Flow-Guided Attentive Correlation: correlates source keys with ref
     keys gathered at the raw flow values (absolute coordinates), then
-    gates the aggregated feature against the source (Eq. 3-4)."""
+    gates the aggregated feature against the source (Eq. 3-4). The
+    correlation runs in float32 and its result goes back to the compute
+    dtype."""
+
+    compute_dtype = torch.float32
 
     def __init__(self, nf: int, rr: int = 0, sr: int = 0, viz: bool = False):
         super().__init__()
@@ -171,10 +230,11 @@ class FGAC(nn.Module):
     def forward(self, ref, source, flow_s2r):
         ref_k = self.conv_ref_k(ref)
         source_k = self.conv_source_k(source)
-        fac = fgac_correlate(ref_k, source_k, flow_s2r.float(),
-                             rr=self.rr, sr=self.sr)
+        fac = fgac_correlate(ref_k.float(), source_k.float(),
+                             flow_s2r.float(), rr=self.rr,
+                             sr=self.sr).to(self.compute_dtype)
         e_s = self.fusion(fac)
-        w = torch.sigmoid(self.w_gen_2(F.relu(self.w_gen(
+        w = _sigmoid(self.w_gen_2(F.relu(self.w_gen(
             torch.cat([source, e_s], dim=1)))))
         bolstered = w * source + (1.0 - w) * e_s
         diff = _minmax_norm(torch.mean(torch.abs(bolstered - source), dim=1,
@@ -184,7 +244,7 @@ class FGAC(nn.Module):
             # internals: source key, initial ref key, aggregated E_s,
             # bolstered ("FCW")
             def norm1(v):
-                return _minmax_norm(torch.mean(torch.abs(v), dim=1,
+                return _minmax_norm(torch.mean(torch.abs(v.float()), dim=1,
                                                keepdim=True))
             extras = (norm1(source), norm1(ref_k), norm1(e_s),
                       norm1(bolstered))
@@ -276,7 +336,10 @@ class Mixer(nn.Module):
 class SepConvGRU(nn.Module):
     """Separable ConvGRU, (1,5) then (5,1). The z and r gates read the
     same [h, x] input, so their weights run as one conv on that concat;
-    the q gate runs one conv on [r*h, x]."""
+    the q gate runs one conv on [r*h, x]. The fused conv runs in the
+    compute dtype (:func:`_conv_in`), as the gates' convs do."""
+
+    compute_dtype = torch.float32
 
     def __init__(self, h_dim: int):
         super().__init__()
@@ -288,11 +351,14 @@ class SepConvGRU(nn.Module):
     def _half(self, h, x, s: str):
         cz, cr, cq = (getattr(self, f"conv{g}{s}") for g in "zrq")
         hd = h.shape[1]
-        zr = F.conv2d(torch.cat([h, x], dim=1),
+        dt = self.compute_dtype
+        zr = _conv_in(dt, lambda i, k, b: F.conv2d(i, k, b,
+                                                   padding=cz.padding),
+                      torch.cat([h.to(dt), x.to(dt)], dim=1),
                       torch.cat([cz.weight, cr.weight], dim=0),
-                      torch.cat([cz.bias, cr.bias]), padding=cz.padding)
-        z = torch.sigmoid(zr[:, :hd])
-        r = torch.sigmoid(zr[:, hd:])
+                      torch.cat([cz.bias, cr.bias]))
+        z = _sigmoid(zr[:, :hd])
+        r = _sigmoid(zr[:, hd:])
         q = torch.tanh(cq(torch.cat([r * h, x], dim=1)))
         return (1.0 - z) * h + z * q
 
@@ -387,15 +453,21 @@ class StageIContext:
 class DeMFINet(nn.Module):
     """DeMFI-Net. ``extract`` takes frames [B, 4, 3, H, W] in reference
     order (B0, B1, B-1, B2); ``synthesize`` takes t_value [B] or [B, 1]
-    and a Python int ``num_update``."""
+    and a Python int ``num_update``. ``compute_dtype``: the convolutions'
+    dtype (float32 or bfloat16); the parameters are float32 either
+    way."""
 
     def __init__(self, nf: int = 64, scale_factor: int = 2,
                  num_res_facfb: int = 5, num_res_dec: int = 5,
                  shared_fgac: bool = True, fgac_rr: int = 0,
                  fgac_sr: int = 0, use_stage2: bool = True,
                  viz_internals: bool = False, img_ch: int = 3,
-                 fwarp_shift_d: int = 0):
+                 fwarp_shift_d: int = 0,
+                 compute_dtype: torch.dtype = torch.float32):
         super().__init__()
+        if compute_dtype not in COMPUTE_DTYPES.values():
+            raise ValueError(f"compute_dtype must be float32 or bfloat16, "
+                             f"got {compute_dtype}")
         self.nf = nf
         # window of CFR's deterministic forward warp (0: atomic splat)
         self.fwarp_shift_d = fwarp_shift_d
@@ -419,6 +491,10 @@ class DeMFINet(nn.Module):
                                                 for _ in range(num_res_dec)])
             self.Dec_last1_2 = _conv(nf, nf, 3)
             self.Dec_last2_2 = _conv(nf, 9, 3)
+        self.compute_dtype = compute_dtype
+        for mod in self.modules():
+            if isinstance(mod, (_Conv, _Conv3dT1, FGAC, SepConvGRU)):
+                mod.compute_dtype = compute_dtype
 
     # ---------------------------------------------------- t-independent
     def extract(self, frames: torch.Tensor) -> StageIContext:
@@ -441,6 +517,9 @@ class DeMFINet(nn.Module):
                    num_update: int) -> DeMFIOutputs:
         """t-dependent Stage I + Stage II."""
         nf = self.nf
+        dt = self.compute_dtype
+        # [B,1,1,1], not 0-dim: a 0-dim float32 tensor times a bfloat16 one
+        # would stay bfloat16
         t = t_value.float().reshape(-1, 1, 1, 1)
         b0 = ctx.frames[:, 0:3]
         b1 = ctx.frames[:, 3:6]
@@ -448,12 +527,16 @@ class DeMFINet(nn.Module):
         flow_t0, flow_t1 = cfr_flow_t_align(ctx.flow_01, ctx.flow_10, t,
                                             self.fwarp_shift_d)
         occ_0 = torch.sigmoid(ctx.occ_0_logit.float())
+        # the features warp in the compute dtype; the gather returns
+        # float32 and the blend runs in float32
         ft = _t_blend(*bwarp_pair(ctx.f0, ctx.f1, flow_t0, flow_t1), occ_0, t)
 
-        agg1 = torch.cat([ctx.a_f0, ctx.a_f1, ft, flow_t0, flow_t1,
-                          ctx.flow_01, ctx.flow_10, ctx.occ_0_logit], dim=1)
+        agg1 = torch.cat([ctx.a_f0, ctx.a_f1, ft.to(dt), flow_t0.to(dt),
+                          flow_t1.to(dt), ctx.flow_01.to(dt),
+                          ctx.flow_10.to(dt), ctx.occ_0_logit.to(dt)], dim=1)
         agg1 = self.Refine_Module(agg1) + torch.cat(
-            [flow_t0, flow_t1, ctx.occ_0_logit, ctx.a_f0, ctx.a_f1], dim=1)
+            [flow_t0.to(dt), flow_t1.to(dt), ctx.occ_0_logit.to(dt),
+             ctx.a_f0, ctx.a_f1], dim=1)
 
         rflow_t0 = agg1[:, 0:2].float()
         rflow_t1 = agg1[:, 2:4].float()
@@ -461,7 +544,8 @@ class DeMFINet(nn.Module):
         occ_0 = torch.sigmoid(occ_0_logit)
         r_f0 = torch.tanh(agg1[:, 5:5 + nf])
         r_f1 = torch.tanh(agg1[:, 5 + nf:5 + 2 * nf])
-        r_ft = _t_blend(*bwarp_pair(r_f0, r_f1, rflow_t0, rflow_t1), occ_0, t)
+        r_ft = _t_blend(*bwarp_pair(r_f0, r_f1, rflow_t0, rflow_t1), occ_0,
+                        t).to(dt)
 
         # D1: joint 3-frame decode (frames folded into the batch)
         bsz, _, h, w = r_f0.shape
@@ -478,16 +562,19 @@ class DeMFINet(nn.Module):
         if self.use_stage2 and num_update > 0:
             f_rec = torch.tanh(self.Ch_Reducer(
                 torch.cat([r_f0, r_f1, r_ft], dim=1)))
-            t_ref = torch.cat([flow_init, occ_0_logit], dim=1)
-            length1_ref = torch.cat([ctx.flow_10, ctx.flow_01], dim=1)
+            t_ref = torch.cat([flow_init.to(dt), occ_0_logit.to(dt)], dim=1)
+            length1_ref = torch.cat([ctx.flow_10, ctx.flow_01], dim=1).to(dt)
+            # the float32 frames promote this concatenation to float32, as
+            # in the JAX model; the conv that reads it casts it back
             sp_ref = torch.cat([s0p, s1p, stp, ctx.frames], dim=1)
             ref = torch.cat([sp_ref, length1_ref, t_ref], dim=1)
             # loop-invariant: encoded once per window
             ref_enc = self.Booster_Module.encode_ref(ref)
 
-            carry = (f_rec, flow_init, occ_0_logit)
-            const = (ref_enc, s0p, s1p, occ_0, rflow_t0, rflow_t1,
-                     ctx.flow_10, ctx.flow_01, ctx.frames, t)
+            carry = (f_rec, flow_init.to(dt), occ_0_logit.to(dt))
+            const = (ref_enc, s0p, s1p, occ_0, rflow_t0.to(dt),
+                     rflow_t1.to(dt), ctx.flow_10.to(dt), ctx.flow_01.to(dt),
+                     ctx.frames, t)
             ys: List[Tuple[torch.Tensor, ...]] = []
             for _ in range(num_update):
                 carry, y = self._boost_step(carry, const)
@@ -514,7 +601,9 @@ class DeMFINet(nn.Module):
 
     def _boost_step(self, carry, const):
         """One recursive-boosting iteration. ``carry`` = (f_rec,
-        delta_flow, delta_occ); ``const`` holds the loop invariants."""
+        delta_flow, delta_occ) in the compute dtype; ``const`` holds the
+        loop invariants."""
+        dt = self.compute_dtype
         f_rec, delta_flow, delta_occ = carry
         (ref_enc, s0p, s1p, occ_0, rflow_t0, rflow_t1,
          flow_10, flow_01, frames, t) = const
@@ -525,21 +614,24 @@ class DeMFINet(nn.Module):
         delta_flow = delta_flow + d_flow
         delta_occ = delta_occ + d_occ
 
-        ft0_f = delta_flow[:, :2]
-        ft1_f = delta_flow[:, 2:4]
-        occ_0_f = torch.sigmoid(delta_occ)
-        st_new = _t_blend(*bwarp_pair(s0p, s1p, ft0_f, ft1_f), occ_0_f, t)
+        ft0_f = delta_flow[:, :2].float()
+        ft1_f = delta_flow[:, 2:4].float()
+        occ_0_f = torch.sigmoid(delta_occ.float())
+        st_new = _t_blend(*bwarp_pair(s0p, s1p, ft0_f, ft1_f), occ_0_f,
+                          t).to(dt)
 
-        agg3 = torch.cat([s0p, s1p, st_new, f_rec, occ_0, rflow_t0, rflow_t1,
-                          flow_10, flow_01, ft0_f, ft1_f, occ_0_f, frames],
-                         dim=1)
+        # float32 like the JAX model's (the frames promote it); the conv
+        # that reads it casts it to the compute dtype
+        agg3 = torch.cat([s0p, s1p, st_new, f_rec, occ_0.to(dt), rflow_t0,
+                          rflow_t1, flow_10, flow_01, ft0_f.to(dt),
+                          ft1_f.to(dt), occ_0_f.to(dt), frames], dim=1)
         out = F.relu(self.Dec_first_2(agg3))
         for blk in self.Decoder_res_2:
             out = blk(out)
         out = F.relu(self.Dec_last1_2(out))
         out = self.Dec_last2_2(out)
-        ys = (delta_flow, occ_0_f, out[:, 0:3] + s0p, out[:, 3:6] + s1p,
-              out[:, 6:9] + st_new)
+        ys = (delta_flow.float(), occ_0_f, out[:, 0:3] + s0p,
+              out[:, 3:6] + s1p, out[:, 6:9] + st_new)
         return (f_rec, delta_flow, delta_occ), ys
 
     def forward(self, frames, t_value, num_update: int = 1) -> DeMFIOutputs:
@@ -559,17 +651,21 @@ def init_weights(model: nn.Module, generator: torch.Generator) -> None:
 def make_model(cfg: DeMFIConfig, device=None) -> DeMFINet:
     """Build DeMFI-Net for ``cfg`` with random weights seeded by
     ``cfg.seed``, on ``device`` (the GPU unless the caller asks for the
-    CPU)."""
+    CPU), computing in ``cfg.compute_dtype`` with float32 parameters."""
     from demfi_torch import resolve_device
 
     dev = resolve_device(device)
+    if cfg.compute_dtype not in COMPUTE_DTYPES:
+        raise ValueError(f"compute_dtype must be one of "
+                         f"{sorted(COMPUTE_DTYPES)}, got {cfg.compute_dtype!r}")
     model = DeMFINet(
         nf=cfg.nf, scale_factor=cfg.scale_factor,
         num_res_facfb=cfg.num_ResB_FACFB, num_res_dec=cfg.num_ResB_Dec,
         shared_fgac=cfg.shared_FGAC_flag, fgac_rr=cfg.fgac_rr,
         fgac_sr=cfg.fgac_sr, use_stage2=max(cfg.N_trn, cfg.N_tst) > 0,
         viz_internals=cfg.visualization_flag, img_ch=cfg.img_ch,
-        fwarp_shift_d=cfg.fwarp_shift_d)
+        fwarp_shift_d=cfg.fwarp_shift_d,
+        compute_dtype=COMPUTE_DTYPES[cfg.compute_dtype])
     gen = torch.Generator().manual_seed(cfg.seed)
     init_weights(model, gen)
     return model.to(dev).eval()

@@ -6,7 +6,10 @@ Three kernels carry the warp ops forward:
       ``_gather_kernel`` / ``bilinear_gather_tpu``
       (demfi_tpu/ops/pallas_kernels.py:58, :145): the bilinear,
       zero-padded gather behind ``bwarp`` (relative mode) and FGAC's
-      ``bilinear_sample_abs`` (absolute mode).
+      ``bilinear_sample_abs`` (absolute mode). Its image is float32 or
+      bfloat16 (one instantiation each; the bf16 model's feature and
+      image warps), everything else float32: the coordinates, weights,
+      accumulation, the 0.999 mask, ``ones`` and the output.
       :func:`bilinear_gather_pair` is the same launch on two halves
       (``bwarp_pair``), the kernel taking both halves' pointers.
   ``fwarp_splat`` (csrc/fwarp_splat.cu) replaces ``_fwarp_kernel`` /
@@ -59,7 +62,9 @@ Two more carry their gradients. The JAX package's fast paths are
       gather (of ``_bwarp_xla`` and ``_bilinear_abs_xla``,
       demfi_tpu/ops/warp.py:448, :494), one or two halves a launch;
       float atomics onto the taps for the image's gradient, a per-pixel
-      sum over channels for the coordinates'.
+      sum over channels for the coordinates'. For a bfloat16 image the
+      atomics add into a float32 scratch plane that a second launch
+      rounds to bfloat16 once.
   ``fwarp_splat_bwd`` (csrc/fwarp_splat_bwd.cu): the vjp of the forward
       warp (of ``_fwarp_xla``, :549), whichever kernel served the
       forward: a gather over each source pixel's four corners, no
@@ -80,9 +85,12 @@ first use, from the sources in this checkout, into
 
 Wrappers: a CPU tensor goes to the kernel's plain version in
 ``demfi_torch/ops/warp.py``; a CUDA tensor launches the kernel on the
-current stream or raises. Each wrapper counts its launches in
-``<wrapper>.launches``, incremented where the kernel is launched and
-nowhere else.
+current stream or raises (``_check``: a dtype a kernel does not take is
+a TypeError, never converted: bfloat16 reaches only the gather's
+image). Each wrapper counts its launches in ``<wrapper>.launches``,
+incremented where the kernel is launched and nowhere else; the gather
+and its backward count their bfloat16 instantiation's launches in
+``<wrapper>.bf16_launches`` as well.
 """
 from __future__ import annotations
 
@@ -109,6 +117,11 @@ SOURCES = {"bilinear_gather": "bilinear_gather.cu",
            "fwarp_splat_bwd": "fwarp_splat_bwd.cu"}
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC"]
+
+# the gather and its backward take these image types (each its own
+# instantiation of the kernel); every other tensor of every kernel is
+# float32
+GATHER_IMAGE_DTYPES = (torch.float32, torch.bfloat16)
 
 _libs: Dict[str, ctypes.CDLL] = {}
 _lock = threading.Lock()
@@ -173,40 +186,58 @@ def build() -> Dict[str, ctypes.CDLL]:
 def _bind(name: str, lib: ctypes.CDLL) -> ctypes.CDLL:
     vp, i = ctypes.c_void_p, ctypes.c_int
     if name == "bilinear_gather":
-        fn = lib.demfi_bilinear_gather_f32
         # img_a, img_b, coords_a, coords_b, out, ones, n, C, H, W, Hq, Wq,
-        # relative, stream
-        fn.argtypes = [vp, vp, vp, vp, vp, vp, i, i, i, i, i, i, i, vp]
+        # relative, stream (the image float32 or bfloat16)
+        fns = [lib.demfi_bilinear_gather_f32, lib.demfi_bilinear_gather_bf16]
+        for fn in fns:
+            fn.argtypes = [vp] * 6 + [i] * 7 + [vp]
     elif name == "fwarp_splat":
-        fn = lib.demfi_fwarp_splat_f32
+        fns = [lib.demfi_fwarp_splat_f32]
         # img, flo, out, norm, flag, served, route_stats, B, C, H, W, stream
-        fn.argtypes = [vp, vp, vp, vp, vp, vp, vp, i, i, i, i, vp]
+        fns[0].argtypes = [vp, vp, vp, vp, vp, vp, vp, i, i, i, i, vp]
     elif name == "bilinear_gather_bwd":
-        fn = lib.demfi_bilinear_gather_bwd_f32
         # img_a, img_b, coords_a, coords_b, gout_a, gout_b, grad_img,
-        # grad_coords, n, C, H, W, Hq, Wq, relative, stream
-        fn.argtypes = [vp] * 8 + [i] * 7 + [vp]
+        # grad_coords, n, C, H, W, Hq, Wq, relative, stream; at bfloat16
+        # the float32 scratch plane comes before grad_img
+        fns = [lib.demfi_bilinear_gather_bwd_f32,
+               lib.demfi_bilinear_gather_bwd_bf16]
+        fns[0].argtypes = [vp] * 8 + [i] * 7 + [vp]
+        fns[1].argtypes = [vp] * 9 + [i] * 7 + [vp]
     elif name == "fwarp_splat_bwd":
-        fn = lib.demfi_fwarp_splat_bwd_f32
+        fns = [lib.demfi_fwarp_splat_bwd_f32]
         # img, flo, gout, gnorm, grad_img, grad_flo, B, C, H, W, stream
-        fn.argtypes = [vp] * 6 + [i] * 4 + [vp]
+        fns[0].argtypes = [vp] * 6 + [i] * 4 + [vp]
     else:
-        fn = lib.demfi_fwarp_shift_f32
+        fns = [lib.demfi_fwarp_shift_f32]
         # img, flo, out, norm, flag, served, row_stats, B, C, H, W, D, stream
-        fn.argtypes = [vp, vp, vp, vp, vp, vp, vp, i, i, i, i, i, vp]
-    fn.restype = i
+        fns[0].argtypes = [vp, vp, vp, vp, vp, vp, vp, i, i, i, i, i, vp]
+    for fn in fns:
+        fn.restype = i
     return lib
 
 
-def _check(name: str, *tensors: torch.Tensor) -> None:
+def _check(name: str, *tensors: torch.Tensor,
+           images: Tuple[torch.Tensor, ...] = ()) -> None:
+    """Refuse what a kernel does not take; convert nothing. ``tensors``
+    must be float32 and ``images`` (the gather's image halves) float32 or
+    bfloat16, all of one type (else TypeError); every one contiguous and
+    on one CUDA device (else ValueError). The dtypes are checked first."""
     for t in tensors:
-        if t.device.type != "cuda":
-            raise ValueError(f"{name}: expected CUDA tensors, got {t.device}")
         if t.dtype != torch.float32:
             raise TypeError(f"{name}: expected float32, got {t.dtype}")
+    for t in images:
+        if t.dtype not in GATHER_IMAGE_DTYPES:
+            raise TypeError(f"{name}: expected a float32 or bfloat16 image, "
+                            f"got {t.dtype}")
+    if len({t.dtype for t in images}) > 1:
+        raise TypeError(f"{name}: image halves of different dtypes")
+    every = tensors + tuple(images)
+    for t in every:
+        if t.device.type != "cuda":
+            raise ValueError(f"{name}: expected CUDA tensors, got {t.device}")
         if not t.is_contiguous():
             raise ValueError(f"{name}: expected contiguous tensors")
-    if len({t.device for t in tensors}) != 1:
+    if len({t.device for t in every}) != 1:
         raise ValueError(f"{name}: tensors on different devices")
 
 
@@ -237,7 +268,8 @@ def _launch_gather(halves, relative: bool, want_ones: bool):
     of equal shapes. Returns (out, ones) over all halves' batch elements,
     the first half's first."""
     (img, coords) = halves[0]
-    _check("bilinear_gather", *(t for half in halves for t in half))
+    _check("bilinear_gather", *(q for _, q in halves),
+           images=tuple(i for i, _ in halves))
     n, c, h, w = img.shape
     if coords.dim() != 4 or coords.shape[:2] != (n, 2):
         raise ValueError(f"bilinear_gather: coords {tuple(coords.shape)} "
@@ -257,7 +289,9 @@ def _launch_gather(halves, relative: bool, want_ones: bool):
     ones = (torch.empty((batch, 1, hq, wq), dtype=torch.float32,
                         device=img.device) if relative and want_ones else None)
     img_b, coords_b = halves[1] if len(halves) == 2 else (None, None)
-    rc = build()["bilinear_gather"].demfi_bilinear_gather_f32(
+    lib = build()["bilinear_gather"]
+    rc = (lib.demfi_bilinear_gather_f32 if img.dtype == torch.float32
+          else lib.demfi_bilinear_gather_bf16)(
         img.data_ptr(), None if img_b is None else img_b.data_ptr(),
         coords.data_ptr(), None if coords_b is None else coords_b.data_ptr(),
         out.data_ptr(), None if ones is None else ones.data_ptr(),
@@ -265,6 +299,8 @@ def _launch_gather(halves, relative: bool, want_ones: bool):
         _raw_stream(img.device))
     _raise_on("bilinear_gather", rc)
     bilinear_gather.launches += 1
+    if img.dtype == torch.bfloat16:
+        bilinear_gather.bf16_launches += 1
     return out, ones
 
 
@@ -274,7 +310,8 @@ def _launch_gather_bwd(halves, relative: bool):
     grad_coords) over all halves' batch elements, the first half's
     first."""
     (img, coords, gout) = halves[0]
-    _check("bilinear_gather_bwd", *(t for half in halves for t in half))
+    _check("bilinear_gather_bwd", *(t for half in halves for t in half[1:]),
+           images=tuple(half[0] for half in halves))
     n, c, h, w = img.shape
     if coords.dim() != 4 or coords.shape[:2] != (n, 2):
         raise ValueError(f"bilinear_gather_bwd: coords {tuple(coords.shape)} "
@@ -293,19 +330,33 @@ def _launch_gather_bwd(halves, relative: bool):
         raise ValueError("bilinear_gather_bwd: a plane of 2^31 elements or "
                          "more")
     batch = len(halves) * n
-    grad_img = torch.zeros((batch, c, h, w), dtype=torch.float32,
+    # the atomics' float32 sums: grad_img itself at float32, a scratch
+    # plane that the kernel rounds into grad_img once at bfloat16
+    grad_acc = torch.zeros((batch, c, h, w), dtype=torch.float32,
                            device=img.device)
     grad_coords = torch.empty((batch, 2, hq, wq), dtype=torch.float32,
                               device=img.device)
     img_b = coords_b = gout_b = None
     if len(halves) == 2:
         img_b, coords_b, gout_b = (t.data_ptr() for t in halves[1])
-    rc = build()["bilinear_gather_bwd"].demfi_bilinear_gather_bwd_f32(
-        img.data_ptr(), img_b, coords.data_ptr(), coords_b, gout.data_ptr(),
-        gout_b, grad_img.data_ptr(), grad_coords.data_ptr(),
-        n, c, h, w, hq, wq, int(relative), _raw_stream(img.device))
+    args = (img.data_ptr(), img_b, coords.data_ptr(), coords_b,
+            gout.data_ptr(), gout_b)
+    tail = (grad_coords.data_ptr(), n, c, h, w, hq, wq, int(relative),
+            _raw_stream(img.device))
+    lib = build()["bilinear_gather_bwd"]
+    if img.dtype == torch.float32:
+        grad_img = grad_acc
+        rc = lib.demfi_bilinear_gather_bwd_f32(*args, grad_img.data_ptr(),
+                                               *tail)
+    else:
+        grad_img = torch.empty((batch, c, h, w), dtype=img.dtype,
+                               device=img.device)
+        rc = lib.demfi_bilinear_gather_bwd_bf16(
+            *args, grad_acc.data_ptr(), grad_img.data_ptr(), *tail)
     _raise_on("bilinear_gather_bwd", rc)
     bilinear_gather_bwd.launches += 1
+    if img.dtype == torch.bfloat16:
+        bilinear_gather_bwd.bf16_launches += 1
     return grad_img, grad_coords
 
 
@@ -378,7 +429,8 @@ class _GatherPair(torch.autograd.Function):
 def bilinear_gather(img: torch.Tensor, coords: torch.Tensor, relative: bool,
                     want_ones: bool = True
                     ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
-    """Bilinear zero-padded gather of img [B,C,H,W] at coords [B,2,Hq,Wq].
+    """Bilinear zero-padded gather of img [B,C,H,W] (float32 or bfloat16)
+    at coords [B,2,Hq,Wq] (float32); the output is float32 either way.
 
     relative=True (bwarp): sample at grid + coords (Hq, Wq == H, W) and
     return (out * (ones >= 0.999), ones), ones being the float32 in-image
@@ -396,6 +448,7 @@ def bilinear_gather(img: torch.Tensor, coords: torch.Tensor, relative: bool,
 
 
 bilinear_gather.launches = 0
+bilinear_gather.bf16_launches = 0       # of them, the bfloat16 image's
 
 
 def bilinear_gather_pair(img_a: torch.Tensor, img_b: torch.Tensor,
@@ -424,8 +477,8 @@ def bilinear_gather_bwd(img: torch.Tensor, coords: torch.Tensor,
                         relative: bool, grad_out: torch.Tensor
                         ) -> Tuple[torch.Tensor, torch.Tensor]:
     """The vjp of :func:`bilinear_gather`'s first output: (grad_img
-    [B,C,H,W], grad_coords [B,2,Hq,Wq]) for the cotangent grad_out
-    [B,C,Hq,Wq]. CPU tensors take
+    [B,C,H,W] in the image's dtype, grad_coords [B,2,Hq,Wq] float32) for
+    the float32 cotangent grad_out [B,C,Hq,Wq]. CPU tensors take
     :func:`demfi_torch.ops.warp.bilinear_gather_plain_vjp`; CUDA tensors
     launch the backward kernel (its float atomics onto the taps add in
     an order that varies from run to run)."""
@@ -436,6 +489,7 @@ def bilinear_gather_bwd(img: torch.Tensor, coords: torch.Tensor,
 
 
 bilinear_gather_bwd.launches = 0
+bilinear_gather_bwd.bf16_launches = 0
 
 
 def bilinear_gather_pair_bwd(img_a, img_b, coords_a, coords_b, grad_a,
@@ -689,12 +743,21 @@ WRAPPERS = (bilinear_gather, fwarp_splat, fwarp_shift, bilinear_gather_bwd,
 def reset_launch_counts() -> None:
     for fn in WRAPPERS:
         fn.launches = 0
+    for fn in (bilinear_gather, bilinear_gather_bwd):
+        fn.bf16_launches = 0
 
 
 def launch_counts() -> Dict[str, int]:
     """Launches of each kernel since the last reset, by wrapper name: the
     three forward kernels and the two backward ones."""
     return {fn.__name__: fn.launches for fn in WRAPPERS}
+
+
+def bf16_launch_counts() -> Dict[str, int]:
+    """Of :func:`launch_counts`, the launches of the gather's and its
+    backward's bfloat16-image instantiations."""
+    return {fn.__name__: fn.bf16_launches
+            for fn in (bilinear_gather, bilinear_gather_bwd)}
 
 
 def fwarp_served(device=None, reset: bool = False) -> Dict[str, int]:

@@ -47,8 +47,11 @@ def _bilinear_zeros(img: torch.Tensor, px: torch.Tensor, py: torch.Tensor
     """Bilinear sample of img [B,C,H,W] at pixel coords px, py [B,Hq,Wq],
     zero padding: a corner tap outside the image contributes zero.
 
-    Returns (sampled [B,C,Hq,Wq], in-image weight [B,1,Hq,Wq]); the
-    second is the same sample of an all-ones image."""
+    Returns (sampled [B,C,Hq,Wq], in-image weight [B,1,Hq,Wq]), both
+    float32; the second is the same sample of an all-ones image. The
+    image is read as float32 (a bfloat16 image widens exactly), so under
+    autograd its gradient sums in float32 and rounds to its dtype once,
+    as the backward kernel does."""
     b, c, h, w = img.shape
     hq, wq = px.shape[-2:]
     px = px.float()
@@ -59,7 +62,7 @@ def _bilinear_zeros(img: torch.Tensor, px: torch.Tensor, py: torch.Tensor
     fy = py - y0f
     x0 = x0f.long()
     y0 = y0f.long()
-    flat = img.reshape(b, c, h * w)
+    flat = img.float().reshape(b, c, h * w)
 
     out = None
     ones = None
@@ -73,7 +76,7 @@ def _bilinear_zeros(img: torch.Tensor, px: torch.Tensor, py: torch.Tensor
             idx = (yi.clamp(0, h - 1) * w + xi.clamp(0, w - 1)).reshape(
                 b, 1, hq * wq)
             tap = torch.gather(flat, 2, idx.expand(b, c, hq * wq))
-            contrib = tap.float() * wgt.reshape(b, 1, hq * wq)
+            contrib = tap * wgt.reshape(b, 1, hq * wq)
             out = contrib if out is None else out + contrib
             ones = wgt if ones is None else ones + wgt
     return out.reshape(b, c, hq, wq), ones[:, None]
@@ -84,7 +87,8 @@ def bilinear_gather_plain(img: torch.Tensor, coords: torch.Tensor,
                           ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
     """Plain version of the ``bilinear_gather`` kernel.
 
-    img [B,C,H,W], coords [B,2,Hq,Wq] (channel 0 = x, channel 1 = y).
+    img [B,C,H,W] float32 or bfloat16, coords [B,2,Hq,Wq] float32
+    (channel 0 = x, channel 1 = y); the outputs are float32.
     relative: sample at ``grid + coords`` (Hq, Wq == H, W), multiply by
     the hard mask (in-image weight >= 0.999, in float32) and return
     (out, in-image weight). Absolute: sample at ``coords`` and return
@@ -149,8 +153,9 @@ def bilinear_gather_plain_vjp(img: torch.Tensor, coords: torch.Tensor,
                               ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Plain version of the ``bilinear_gather_bwd`` kernel: the vjp of
     :func:`bilinear_gather_plain`'s first output for the cotangent
-    grad_out [B,C,Hq,Wq], by autograd. Returns (grad_img [B,C,H,W],
-    grad_coords [B,2,Hq,Wq])."""
+    grad_out [B,C,Hq,Wq], by autograd. Returns (grad_img [B,C,H,W] in the
+    image's dtype, summed in float32 and rounded once, grad_coords
+    [B,2,Hq,Wq] float32)."""
     with torch.enable_grad():
         img = img.detach().requires_grad_(True)
         coords = coords.detach().requires_grad_(True)

@@ -153,6 +153,83 @@ def test_gather_pair_entry_is_exact(cuda_device, c, want_ones):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("relative,hq,wq", [(True, 23, 57), (False, 23, 57),
+                                            (False, 69, 171)])
+@pytest.mark.parametrize("c", [1, 3, 5, 64, 70])
+def test_gather_kernel_bf16_is_exact(cuda_device, relative, hq, wq, c):
+    """bfloat16 image values (the bf16 model's warps): out and ones are
+    float32 and equal the plain version bit for bit (a bf16 tap widens
+    to float32 exactly; the arithmetic after it is the float32 kernel's),
+    with NaN, infinite and far-outside coordinates, ragged sizes and a
+    3x query grid."""
+    rng = np.random.RandomState(200 + c)
+    img, coords = _gather_inputs(rng, 2, c, 23, 57, hq, wq, relative,
+                                 cuda_device)
+    img = img.bfloat16()
+    n = kernels.bilinear_gather.launches
+    out, ones = kernels.bilinear_gather(img, coords, relative)
+    torch.cuda.synchronize()
+    assert kernels.bilinear_gather.launches == n + 1
+    pout, pones = warp.bilinear_gather_plain(img, coords, relative)
+    assert out.dtype == pout.dtype == torch.float32
+    _exact(out, pout)
+    if relative:
+        assert ones.dtype == torch.float32
+        _exact(ones, pones)
+    else:
+        assert ones is None
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("c", [3, 64])
+def test_gather_pair_entry_bf16(cuda_device, c):
+    """bwarp_pair at bfloat16: one launch, float32 halves, each equal to
+    its plain version."""
+    rng = np.random.RandomState(300 + c)
+    a, fa = _gather_inputs(rng, 2, c, 21, 70, 21, 70, True, cuda_device)
+    b, fb = _gather_inputs(rng, 2, c, 21, 70, 21, 70, True, cuda_device)
+    a, b = a.bfloat16(), b.bfloat16()
+    n = kernels.bilinear_gather.launches
+    oa, ob = warp.bwarp_pair(a, b, fa, fb)
+    torch.cuda.synchronize()
+    assert kernels.bilinear_gather.launches == n + 1
+    for out, img, flo in ((oa, a, fa), (ob, b, fb)):
+        assert out.dtype == torch.float32
+        _exact(out, warp.bilinear_gather_plain(img, flo, True)[0])
+
+
+@pytest.mark.cuda
+def test_gather_bf16_mask_stays_float32(cuda_device):
+    """The 0.999 mask reads the float32 in-image weight whatever the
+    image's type. Flows push pixels of the last column outside by f, so
+    their in-image weight is 1 - f: 0.9985 (f32 closes; a bf16 compare,
+    with 0.999 itself rounded to 0.99805, would open), 0.99901 (f32
+    opens; a bf16 weight, rounded to 0.99805, would close) and 0.9998
+    (both open)."""
+    h, w = 8, 56
+    img = torch.full((1, 2, h, w), 0.75, device=cuda_device).bfloat16()
+    flow = torch.zeros((1, 2, h, w), device=cuda_device)
+    fs = (1.5e-3, 9.9e-4, 2e-4)
+    for row, f in enumerate(fs):
+        flow[0, 0, row, w - 1] = f
+    out, ones = kernels.bilinear_gather(img, flow.contiguous(), True)
+    pout, pones = warp.bilinear_gather_plain(img, flow, True)
+    torch.cuda.synchronize()
+    _exact(out, pout)
+    _exact(ones, pones)
+    assert ones.dtype == out.dtype == torch.float32
+    for row, f in enumerate(fs):
+        wgt = float(ones[0, 0, row, w - 1])
+        assert abs(wgt - (1.0 - f)) < 1e-5, (f, wgt)
+        got = out[0, :, row, w - 1]
+        if wgt >= 0.999:
+            torch.testing.assert_close(got, torch.full_like(got, 0.75 * wgt))
+        else:
+            assert float(got.abs().max()) == 0.0, (f, wgt, got)
+    assert float(ones[0, 0, 0, w - 1]) < 0.999 <= float(ones[0, 0, 1, w - 1])
+
+
+@pytest.mark.cuda
 def test_splat_kernel_matches_plain(cuda_device):
     rng = np.random.RandomState(3)
     img = torch.from_numpy(rng.randn(3, 2, 40, 56).astype(np.float32) * 20)
@@ -400,6 +477,22 @@ def test_wrappers_refuse_what_the_kernels_do_not_take(cuda_device):
     flo = torch.zeros((1, 2, 8, 8), device=cuda_device)
     with pytest.raises(TypeError):
         kernels.bilinear_gather(img.double(), flo.double(), relative=True)
+    # bfloat16: the gather's image only; never converted
+    bf = img.bfloat16()
+    with pytest.raises(TypeError):
+        kernels.bilinear_gather(img, flo.bfloat16(), relative=True)
+    with pytest.raises(TypeError):
+        kernels.bilinear_gather_pair(bf, img, flo, flo, relative=True)
+    with pytest.raises(TypeError):
+        kernels.bilinear_gather_bwd(bf, flo, True, img.bfloat16())
+    with pytest.raises(TypeError):
+        kernels.fwarp_splat(flo.bfloat16(), flo)
+    with pytest.raises(TypeError):
+        kernels.fwarp_shift(flo.bfloat16(), flo, 4)
+    with pytest.raises(TypeError):
+        kernels.fwarp_guarded(flo, flo.bfloat16(), 4)
+    with pytest.raises(TypeError):
+        kernels.fwarp_splat_bwd(flo.bfloat16(), flo, flo, flo[:, :1])
     with pytest.raises(ValueError):
         kernels.fwarp_splat(img.transpose(2, 3), flo)
     with pytest.raises(ValueError, match="stats"):
@@ -526,6 +619,77 @@ def test_gather_pair_bwd_is_one_launch(cuda_device, c):
         pi, pc = warp.bilinear_gather_plain_vjp(img, co, True, g)
         _within(gi, pi)
         _within(gc, pc)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", ["mixed", "edge"])
+@pytest.mark.parametrize("relative", [True, False])
+@pytest.mark.parametrize("c", [1, 3, 64])
+def test_gather_bwd_kernel_bf16_matches_plain_vjp(cuda_device, c, relative,
+                                                  kind):
+    """bfloat16 image values: grad_img bfloat16 (float32 sums rounded
+    once, in the plain vjp too, in another order) within 1e-2 of the
+    largest value of the plain vjp, grad_coords float32 within 1e-5;
+    masked pixels get no coordinate gradient."""
+    rng = np.random.RandomState(c * 10 + relative + 500)
+    b, h, w = 2, 37, 75
+    hq, wq = (h, w) if relative else (29, 83)
+    img = torch.from_numpy(rng.randn(b, c, h, w).astype(np.float32)).to(
+        cuda_device).bfloat16()
+    coords = torch.from_numpy(_bwd_coords(rng, kind, b, h, w, hq, wq,
+                                          relative)).to(cuda_device)
+    gout = torch.from_numpy(rng.randn(b, c, hq, wq).astype(np.float32)).to(
+        cuda_device)
+    n = kernels.bilinear_gather_bwd.launches
+    gi, gc = kernels.bilinear_gather_bwd(img, coords, relative, gout)
+    torch.cuda.synchronize()
+    assert kernels.bilinear_gather_bwd.launches == n + 1
+    assert gi.dtype == torch.bfloat16 and gc.dtype == torch.float32
+    pi, pc = warp.bilinear_gather_plain_vjp(img, coords, relative, gout)
+    assert pi.dtype == torch.bfloat16 and pc.dtype == torch.float32
+    _within(gi.float(), pi.float(), 1e-2)
+    _within(gc, pc)
+    # the float32 sums, rounded once: within a bf16 rounding of the exact
+    # vjp (the float32 image's, on the same values)
+    ei, ec = warp.bilinear_gather_plain_vjp(img.float(), coords, relative,
+                                            gout)
+    _within(gi.float(), ei, 2 ** -8)
+    _within(gc, ec)
+    if relative and kind == "mixed":
+        _, ones = warp.bilinear_gather_plain(img, coords, True)
+        masked = (ones < 0.999).expand_as(gc)
+        assert bool(masked.any()) and float(gc[masked].abs().max()) == 0.0
+
+
+@pytest.mark.cuda
+def test_gather_pair_bwd_bf16(cuda_device):
+    """bwarp_pair's backward at bfloat16 under autograd: one launch each
+    way, bfloat16 image gradients and float32 flow gradients, against the
+    plain vjp."""
+    rng = np.random.RandomState(77)
+    b, c, h, w = 2, 64, 40, 56
+    a, bb = (torch.from_numpy(rng.randn(b, c, h, w).astype(np.float32)).to(
+        cuda_device).bfloat16().requires_grad_(True) for _ in range(2))
+    fa, fb = (torch.from_numpy((rng.randn(b, 2, h, w) * 9).astype(
+        np.float32)).to(cuda_device).requires_grad_(True) for _ in range(2))
+    ga, gb = (torch.from_numpy(rng.randn(b, c, h, w).astype(np.float32)).to(
+        cuda_device) for _ in range(2))
+    n = kernels.launch_counts()
+    with torch.enable_grad():
+        oa, ob = warp.bwarp_pair(a, bb, fa, fb)
+        assert oa.dtype == ob.dtype == torch.float32
+        torch.autograd.backward((oa, ob), (ga, gb))
+    torch.cuda.synchronize()
+    after = kernels.launch_counts()
+    assert after["bilinear_gather"] == n["bilinear_gather"] + 1
+    assert after["bilinear_gather_bwd"] == n["bilinear_gather_bwd"] + 1
+    for img, flo, g in ((a, fa, ga), (bb, fb, gb)):
+        assert img.grad.dtype == torch.bfloat16
+        assert flo.grad.dtype == torch.float32
+        pi, pc = warp.bilinear_gather_plain_vjp(img.detach(), flo.detach(),
+                                                True, g)
+        _within(img.grad.float(), pi.float(), 1e-2)
+        _within(flo.grad, pc)
 
 
 @pytest.mark.cuda

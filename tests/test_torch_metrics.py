@@ -123,3 +123,27 @@ def test_progress_printer_and_summary(capsys):
     net = torch.nn.Sequential(torch.nn.Conv2d(3, 4, 3), torch.nn.Conv2d(4, 2, 1))
     text = tmeters.model_summary(net)
     assert f"{3 * 4 * 9 + 4 + 4 * 2 + 2:,}" in text.splitlines()[-2]
+
+
+@pytest.mark.parametrize("psnr_db,operating", [
+    (54.0, 34.0), (44.0, 34.0), (34.28 + 19.4, 34.28), (34.28 + 19.3, 34.28)])
+def test_bf16_serving_label_equals_jax(psnr_db, operating):
+    """The modelled shift at the cases of the JAX package's own test:
+    inside the budget at 54 dB, 0.41 dB outside at 44 dB, and the 0.05 dB
+    boundary between 19.4 and 19.3 dB above the operating point."""
+    got = tm.bf16_serving_label(psnr_db, operating_psnr_db=operating)
+    assert got == jm.bf16_serving_label(psnr_db, operating_psnr_db=operating)
+    shift, ok, label = got
+    assert shift == pytest.approx(
+        10 * np.log10(1 + 10 ** ((operating - psnr_db) / 10)), rel=1e-12)
+    assert ok == (shift < 0.05)
+    assert ("within" in label) if ok else (f"−{shift:.2f} dB" in label)
+
+
+@pytest.mark.parametrize("shift,certified", [(0.049, True), (-0.2, True),
+                                             (0.31, False)])
+def test_bf16_measured_label_equals_jax(shift, certified):
+    got = tm.bf16_measured_label(shift)
+    assert got == jm.bf16_measured_label(shift)
+    assert got[0] is certified
+    assert (f"{shift:+.3f} dB" if certified else f"−{shift:.2f} dB") in got[1]
