@@ -4,7 +4,7 @@
     python3 chip_smoke.py            # needs one CUDA card
     python3 chip_smoke.py --profile  # adds a torch.profiler breakdown of
                                      # one window and of one train step
-    python3 chip_smoke.py --kernels-of DIR   # phases 1-3 only, on the
+    python3 chip_smoke.py --kernels-of DIR   # phases 1-3c only, on the
                                      # checkout of the port at DIR
 
 Phases:
@@ -41,6 +41,11 @@ Phases:
      into it. The bfloat16 model's gathers: both pairs again on bfloat16
      values (image bytes counted at 2 B, F.grid_sample in bfloat16 as the
      yardstick; FGAC's sample stays float32 there);
+  3c. (``--kernels-of`` only) the gather's backward at the train step's
+     three sites on synthetic inputs (gather_bwd_sites), float32 and
+     bfloat16 images: device ms, the share of blocks per route and the
+     error against the plain vjp, so that two checkouts compare in one
+     run;
   4. main path: x8 DeMFI-Net_rb(5,3), full width, seeded random weights,
      through InferenceEngine.forward_windows on one 352x640 window
      (warm-up, then timed runs; the rate is all windows over all their
@@ -81,8 +86,11 @@ Phases:
      a yardstick; the splat's on the CFR flows, i.i.d. noise flows and
      non-finite flows (dropped pixels get zero gradients), twice for a
      bitwise comparison; each with device ms, enqueue us, bound and the
-     plain vjp's ms; the gather's pairs again on bfloat16 images (their
-     gradient within 1e-2 of the largest value, the coordinates' 1e-5);
+     plain vjp's ms, the gather's with the share of its blocks per route
+     (shared box or global atomics); the gather's three sites again on
+     bfloat16 images (their gradient within 1e-2 of the largest value,
+     the coordinates' 1e-5; FGAC's only as a check, it samples float32 in
+     the bfloat16 model);
      (b) one train step on the card against the port on
      the CPU at 64x64 on the same weights and batch: the loss, and every
      gradient against the CPU's to the larger of 1e-3 and twice the
@@ -334,6 +342,43 @@ def gather_bwd_counts(torch, warp, coords, relative: bool, h: int, w: int):
             gather_image_pixels(torch, coords, relative, h, w, where=live))
 
 
+def gather_bwd_sites(torch, dev) -> dict:
+    """Synthetic inputs of the gather backward's three train-step sites,
+    at the train step's shapes (batch 2, 256x256): the C=64 feature pair
+    and the C=3 booster pair on smooth relative flows (a 16x16 field of
+    normal draws, upsampled bilinearly, scaled to peak at FLOW_TARGET_PX),
+    and FGAC's absolute sample at such a field's raw values (taps near
+    the image's origin, as the main path's FGAC takes them), each with a
+    float32 image and again with a bfloat16 one. Made from SEED on the
+    card. Returns {site: ([(img, coords, grad_out)], relative)}."""
+    import torch.nn.functional as F
+    g = torch.Generator(device=dev).manual_seed(SEED + 9)
+    nb, ps = TRAIN_B, TRAIN_PS
+
+    def randn(*shape):
+        return torch.randn(shape, device=dev, generator=g)
+
+    def smooth():
+        f = F.interpolate(randn(nb, 2, ps // 16, ps // 16), size=(ps, ps),
+                          mode="bilinear", align_corners=False)
+        return (f * (FLOW_TARGET_PX / f.abs().max())).contiguous()
+
+    fa, fb, fabs = smooth(), smooth(), smooth()
+    f64, i3 = [randn(nb, 64, ps, ps) for _ in range(2)], \
+        [randn(nb, 3, ps, ps) for _ in range(2)]
+    g64, g3 = [randn(nb, 64, ps, ps) for _ in range(3)], \
+        [randn(nb, 3, ps, ps) for _ in range(2)]
+    sites = {}
+    for dt, tag in ((torch.float32, ""), (torch.bfloat16, " bf16")):
+        sites["pair rel C=64" + tag] = ([(f64[0].to(dt), fa, g64[0]),
+                                         (f64[1].to(dt), fb, g64[1])], True)
+        sites["abs C=64 (FGAC)" + tag] = ([(f64[0].to(dt), fabs, g64[2])],
+                                          False)
+        sites["pair rel C=3" + tag] = ([(i3[0].to(dt), fa, g3[0]),
+                                        (i3[1].to(dt), fb, g3[1])], True)
+    return sites
+
+
 def splat_targets(torch, flo) -> int:
     """Distinct in-image pixels the forward splat of flo [B,2,H,W] lands
     on (the splat's vjp reads grad_out and grad_norm there only)."""
@@ -439,10 +484,10 @@ def train_phase(torch, dev, data_root: Path, tmp: Path,
     bwd_rows = []
 
     def bwd_row(kernel, name, per_step, fn, plain, library, pairs, nbytes,
-                ops, note="", tols=None, per_step_bf16=0):
+                ops, note="", tols=None, per_step_bf16=0, routes=""):
         """One backward case: pairs() gives (kernel result, plain vjp
         result) tensors, ``tols`` their tolerances (BWD_RTOL each by
-        default); fn() launches once."""
+        default); fn() launches once; ``routes`` ends the printed line."""
         n0 = getattr(kernels, kernel).launches
         got_want = [(a.float(), b.float()) for a, b in pairs()]
         torch.cuda.synchronize()
@@ -477,7 +522,7 @@ def train_phase(torch, dev, data_root: Path, tmp: Path,
             f"{r['plain_ms']:.4f} ms; library {lib} | bound "
             f"{r['bound_ms']:.4f} ms by {r['bound_by']} ({nbytes / 1e9:.4f} "
             f"GB, {ops / 1e9:.4f} G operations; kernel at "
-            f"{r['ms'] / r['bound_ms']:.2f}x)")
+            f"{r['ms'] / r['bound_ms']:.2f}x){routes}")
         check(finite, f"{name}: non-finite kernel output")
         check(all(e <= v for e, v in zip(errs, tols)),
               f"{name}: kernel disagrees with its plain vjp ({errs} > {tols})")
@@ -520,9 +565,9 @@ def train_phase(torch, dev, data_root: Path, tmp: Path,
         if pair:
             (a, fa, ga), (a2, fb, gb) = halves
 
-            def fn():
-                return kernels.bilinear_gather_pair_bwd(a, a2, fa, fb, ga, gb,
-                                                        relative)
+            def fn(stats=None):
+                return kernels.bilinear_gather_pair_bwd(
+                    a, a2, fa, fb, ga, gb, relative, route_stats=stats)
 
             def pairs():
                 (gia, gib), (gca, gcb) = fn()
@@ -533,22 +578,35 @@ def train_phase(torch, dev, data_root: Path, tmp: Path,
         else:
             (a, fa, ga), = halves
 
-            def fn():
-                return kernels.bilinear_gather_bwd(a, fa, relative, ga)
+            def fn(stats=None):
+                return kernels.bilinear_gather_bwd(a, fa, relative, ga,
+                                                   route_stats=stats)
 
             def pairs():
                 gi, gc = fn()
                 p = warp.bilinear_gather_plain_vjp(a, fa, relative, ga)
                 return [(gi, p[0]), (gc, p[1])]
         bf16 = halves[0][0].dtype == torch.bfloat16
+        # the kernel's 32x8 query tiles per route (box or global), counted
+        # by the kernel in a launch of its own
+        stats = torch.zeros(2, dtype=torch.int64, device=dev)
+        fn(stats)
+        box, spread = (int(v) for v in stats.cpu())
+        blocks = len(halves) * halves[0][1].shape[0] * -(
+            -halves[0][1].shape[2] // 8) * -(-halves[0][1].shape[3] // 32)
+        check(box + spread == blocks, f"{name}: {box} + {spread} blocks "
+                                      f"counted, the grid has {blocks}")
         bwd_row("bilinear_gather_bwd", name, per_step, fn,
                 lambda: [warp.bilinear_gather_plain_vjp(i, co, relative, go)
                          for i, co, go in halves],
                 lambda: [f() for f in library], pairs, nbytes, ops,
                 "; one launch" if pair else "",
                 [BWD_BF16_IMG_RTOL if bf16 else BWD_RTOL, BWD_RTOL]
-                * len(halves), per_step_bf16)
-        bwd_rows[-1]["image_dtype"] = "bfloat16" if bf16 else "float32"
+                * len(halves), per_step_bf16,
+                f" | {100 * box / blocks:.1f} % of {blocks} blocks on the box "
+                f"route, {100 * spread / blocks:.1f} % global")
+        bwd_rows[-1].update(image_dtype="bfloat16" if bf16 else "float32",
+                            box_route_share=box / blocks)
 
     nb, nf, ps = TRAIN_B, cfg.nf, TRAIN_PS
     gather_case(f"gather bwd pair rel C={nf} 2x{nb} {ps}x{ps}", 2,
@@ -570,6 +628,11 @@ def train_phase(torch, dev, data_root: Path, tmp: Path,
                 [(inputs[:, 0].bfloat16(), ft0, cot(nb, 3, ps, ps)),
                  (inputs[:, 1].bfloat16(), ft1, cot(nb, 3, ps, ps))], True,
                 per_step_bf16=cfg.N_trn)
+    # the bfloat16 instantiation in absolute mode: not on the bfloat16
+    # path (FGAC samples float32 there), held to its plain vjp all the same
+    gather_case(f"gather bwd abs C={nf} B={nb} (FGAC) bf16", 0,
+                [(ctx.f0.bfloat16(), ctx.flow_01.contiguous(),
+                  cot(nb, nf, ps, ps))], False)
 
     img = ctx.flow_01.contiguous()
     flo_smooth = (tt * ctx.flow_01).contiguous()
@@ -927,15 +990,72 @@ def train_phase(torch, dev, data_root: Path, tmp: Path,
                 cli_wall=[first["wall"], second["wall"], test_wall, wall16])
 
 
+def gather_bwd_timings(torch, dev, kernels, warp) -> list:
+    """Phase 3c (``--kernels-of`` only): the gather's backward at the
+    train step's three sites on synthetic inputs (gather_bwd_sites), so
+    that two checkouts compare in one run: per site the device ms of the
+    wrapper call (its zero fill included), the share of blocks per route
+    ("not counted" by a checkout without route_stats) and the largest
+    error against the plain vjp. Returns the rows."""
+    has_routes = "route_stats" in inspect.signature(
+        kernels.bilinear_gather_bwd).parameters
+    timer = DeviceTimer(torch)
+    out = []
+    for site, (halves, relative) in gather_bwd_sites(torch, dev).items():
+        def fn(**stats):
+            if len(halves) == 1:
+                (i, co, go), = halves
+                return kernels.bilinear_gather_bwd(i, co, relative, go,
+                                                   **stats)
+            (a, fa, ga), (b, fb, gb) = halves
+            return kernels.bilinear_gather_pair_bwd(a, b, fa, fb, ga, gb,
+                                                    relative, **stats)
+        got = fn()
+        # grad_img first (one or two halves), then grad_coords
+        got = ([got[0], got[1]] if len(halves) == 1 else
+               [got[0][0], got[0][1], got[1][0], got[1][1]])
+        want = [t for i, co, go in halves
+                for t in warp.bilinear_gather_plain_vjp(i, co, relative, go)]
+        want = want if len(halves) == 1 else [want[0], want[2], want[1],
+                                              want[3]]
+        bf16 = halves[0][0].dtype == torch.bfloat16
+        errs = [float((a.float() - b.float()).abs().max())
+                / max(1.0, float(b.float().abs().max()))
+                for a, b in zip(got, want)]
+        tols = ([BWD_BF16_IMG_RTOL if bf16 else BWD_RTOL] * len(halves)
+                + [BWD_RTOL] * len(halves))
+        share = None
+        if has_routes:
+            stats = torch.zeros(2, dtype=torch.int64, device=dev)
+            fn(route_stats=stats)
+            box, spread = (int(v) for v in stats.cpu())
+            share = box / (box + spread)
+        r = dict(site=site, ms=timer.ms(fn, 10), box_route_share=share,
+                 max_rel_err=max(errs))
+        out.append(r)
+        say(f"[3c gather bwd] {site}: kernel {r['ms']:.4f} ms device (zero "
+            f"fill included) | max err {max(errs):.3g} of the largest value "
+            f"(tol {max(tols):.0e}) | "
+            + ("routes not counted" if share is None else
+               f"{100 * share:.1f} % of blocks on the box route, "
+               f"{100 * (1 - share):.1f} % global"))
+        check(all(e <= t for e, t in zip(errs, tols)),
+              f"{site}: kernel disagrees with its plain vjp ({errs})")
+    del timer
+    torch.cuda.empty_cache()
+    return out
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--profile", action="store_true")
     ap.add_argument("--kernels-of", metavar="DIR", default="",
-                    help="run phases 1-3 on the checkout of the port at DIR "
-                         "and stop ('.' for this one; an earlier commit's, "
-                         "to time both in one run: what that checkout's "
-                         "kernels lack, the pair entry and the stencil's "
-                         "row count and largest window, is then not "
+                    help="run phases 1-3c on the checkout of the port at "
+                         "DIR and stop ('.' for this one; an earlier "
+                         "commit's, to time both in one run: what that "
+                         "checkout's kernels lack, the pair entry, the "
+                         "stencil's row count and largest window and the "
+                         "gather backward's route counts, is then not "
                          "checked)")
     args = ap.parse_args()
 
@@ -1398,6 +1518,8 @@ def main() -> int:
     if args.kernels_of:
         say(json.dumps({"kernel_cases": rows, "card": card,
                         "splat_tile_spread": tile_spread,
+                        "gather_bwd_sites": gather_bwd_timings(
+                            torch, dev, kernels, warp),
                         "tree": args.kernels_of}))
         return 0
 

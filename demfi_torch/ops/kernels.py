@@ -60,11 +60,13 @@ Two more carry their gradients. The JAX package's fast paths are
 
   ``bilinear_gather_bwd`` (csrc/bilinear_gather_bwd.cu): the vjp of the
       gather (of ``_bwarp_xla`` and ``_bilinear_abs_xla``,
-      demfi_tpu/ops/warp.py:448, :494), one or two halves a launch;
-      float atomics onto the taps for the image's gradient, a per-pixel
-      sum over channels for the coordinates'. For a bfloat16 image the
-      atomics add into a float32 scratch plane that a second launch
-      rounds to bfloat16 once.
+      demfi_tpu/ops/warp.py:448, :494), one or two halves a launch; the
+      image's gradient scattered through a shared-memory box of each
+      query tile's taps, flushed with 16-byte reductions (a tile whose
+      taps spread beyond the box adds straight to global memory, in the
+      same launch), a per-pixel sum over channels for the coordinates'.
+      For a bfloat16 image the scatter adds into a float32 scratch plane
+      that a second launch rounds to bfloat16 once.
   ``fwarp_splat_bwd`` (csrc/fwarp_splat_bwd.cu): the vjp of the forward
       warp (of ``_fwarp_xla``, :549), whichever kernel served the
       forward: a gather over each source pixel's four corners, no
@@ -197,12 +199,12 @@ def _bind(name: str, lib: ctypes.CDLL) -> ctypes.CDLL:
         fns[0].argtypes = [vp, vp, vp, vp, vp, vp, vp, i, i, i, i, vp]
     elif name == "bilinear_gather_bwd":
         # img_a, img_b, coords_a, coords_b, gout_a, gout_b, grad_img,
-        # grad_coords, n, C, H, W, Hq, Wq, relative, stream; at bfloat16
-        # the float32 scratch plane comes before grad_img
+        # grad_coords, route_stats, n, C, H, W, Hq, Wq, relative, stream;
+        # at bfloat16 the float32 scratch plane comes before grad_img
         fns = [lib.demfi_bilinear_gather_bwd_f32,
                lib.demfi_bilinear_gather_bwd_bf16]
-        fns[0].argtypes = [vp] * 8 + [i] * 7 + [vp]
-        fns[1].argtypes = [vp] * 9 + [i] * 7 + [vp]
+        fns[0].argtypes = [vp] * 9 + [i] * 7 + [vp]
+        fns[1].argtypes = [vp] * 10 + [i] * 7 + [vp]
     elif name == "fwarp_splat_bwd":
         fns = [lib.demfi_fwarp_splat_bwd_f32]
         # img, flo, gout, gnorm, grad_img, grad_flo, B, C, H, W, stream
@@ -304,7 +306,7 @@ def _launch_gather(halves, relative: bool, want_ones: bool):
     return out, ones
 
 
-def _launch_gather_bwd(halves, relative: bool):
+def _launch_gather_bwd(halves, relative: bool, route_stats=None):
     """One launch of the gather's backward kernel on one or two (img,
     coords, grad_out) halves of equal shapes. Returns (grad_img,
     grad_coords) over all halves' batch elements, the first half's
@@ -312,6 +314,7 @@ def _launch_gather_bwd(halves, relative: bool):
     (img, coords, gout) = halves[0]
     _check("bilinear_gather_bwd", *(t for half in halves for t in half[1:]),
            images=tuple(half[0] for half in halves))
+    _check_stats("bilinear_gather_bwd", route_stats, img)
     n, c, h, w = img.shape
     if coords.dim() != 4 or coords.shape[:2] != (n, 2):
         raise ValueError(f"bilinear_gather_bwd: coords {tuple(coords.shape)} "
@@ -330,7 +333,7 @@ def _launch_gather_bwd(halves, relative: bool):
         raise ValueError("bilinear_gather_bwd: a plane of 2^31 elements or "
                          "more")
     batch = len(halves) * n
-    # the atomics' float32 sums: grad_img itself at float32, a scratch
+    # the scatter's float32 sums: grad_img itself at float32, a scratch
     # plane that the kernel rounds into grad_img once at bfloat16
     grad_acc = torch.zeros((batch, c, h, w), dtype=torch.float32,
                            device=img.device)
@@ -341,8 +344,9 @@ def _launch_gather_bwd(halves, relative: bool):
         img_b, coords_b, gout_b = (t.data_ptr() for t in halves[1])
     args = (img.data_ptr(), img_b, coords.data_ptr(), coords_b,
             gout.data_ptr(), gout_b)
-    tail = (grad_coords.data_ptr(), n, c, h, w, hq, wq, int(relative),
-            _raw_stream(img.device))
+    tail = (grad_coords.data_ptr(),
+            None if route_stats is None else route_stats.data_ptr(),
+            n, c, h, w, hq, wq, int(relative), _raw_stream(img.device))
     lib = build()["bilinear_gather_bwd"]
     if img.dtype == torch.float32:
         grad_img = grad_acc
@@ -394,11 +398,12 @@ def _launch_gather_pair(img_a, img_b, coords_a, coords_b, relative: bool,
 
 
 def _launch_gather_pair_bwd(img_a, img_b, coords_a, coords_b, grad_a,
-                            grad_b, relative: bool):
+                            grad_b, relative: bool, route_stats=None):
     """One backward launch on two halves, split back into
     ((grad_img_a, grad_img_b), (grad_coords_a, grad_coords_b))."""
     grad_img, grad_coords = _launch_gather_bwd(
-        [(img_a, coords_a, grad_a), (img_b, coords_b, grad_b)], relative)
+        [(img_a, coords_a, grad_a), (img_b, coords_b, grad_b)], relative,
+        route_stats)
     n = img_a.shape[0]
     return ((grad_img[:n], grad_img[n:]), (grad_coords[:n], grad_coords[n:]))
 
@@ -474,18 +479,25 @@ def bilinear_gather_pair(img_a: torch.Tensor, img_b: torch.Tensor,
 
 
 def bilinear_gather_bwd(img: torch.Tensor, coords: torch.Tensor,
-                        relative: bool, grad_out: torch.Tensor
+                        relative: bool, grad_out: torch.Tensor,
+                        route_stats: Optional[torch.Tensor] = None
                         ) -> Tuple[torch.Tensor, torch.Tensor]:
     """The vjp of :func:`bilinear_gather`'s first output: (grad_img
     [B,C,H,W] in the image's dtype, grad_coords [B,2,Hq,Wq] float32) for
     the float32 cotangent grad_out [B,C,Hq,Wq]. CPU tensors take
     :func:`demfi_torch.ops.warp.bilinear_gather_plain_vjp`; CUDA tensors
-    launch the backward kernel (its float atomics onto the taps add in
-    an order that varies from run to run)."""
+    launch the backward kernel (its float reductions into grad_img add
+    in an order that varies from run to run; grad_coords has the same
+    bits every run).
+    route_stats, for measurement on the card: an int64 [2] tensor to
+    which the kernel adds its 32x8 query tiles that scattered through
+    the shared-memory box and those that added straight to global
+    memory."""
     if all(t.device.type == "cpu" for t in (img, coords, grad_out)):
         return _warp.bilinear_gather_plain_vjp(img, coords, relative,
                                                grad_out)
-    return _launch_gather_bwd([(img, coords, grad_out)], relative)
+    return _launch_gather_bwd([(img, coords, grad_out)], relative,
+                              route_stats)
 
 
 bilinear_gather_bwd.launches = 0
@@ -493,7 +505,8 @@ bilinear_gather_bwd.bf16_launches = 0
 
 
 def bilinear_gather_pair_bwd(img_a, img_b, coords_a, coords_b, grad_a,
-                             grad_b, relative: bool):
+                             grad_b, relative: bool,
+                             route_stats: Optional[torch.Tensor] = None):
     """:func:`bilinear_gather_bwd` of two halves of equal shapes in one
     launch (counted in ``bilinear_gather_bwd.launches``). Returns
     ((grad_img_a, grad_img_b), (grad_coords_a, grad_coords_b))."""
@@ -503,7 +516,7 @@ def bilinear_gather_pair_bwd(img_a, img_b, coords_a, coords_b, grad_a,
         gi_b, gc_b = bilinear_gather_bwd(img_b, coords_b, relative, grad_b)
         return (gi_a, gi_b), (gc_a, gc_b)
     return _launch_gather_pair_bwd(img_a, img_b, coords_a, coords_b, grad_a,
-                                   grad_b, relative)
+                                   grad_b, relative, route_stats)
 
 
 def _served_counter(device: torch.device) -> torch.Tensor:

@@ -1,6 +1,7 @@
 """Times source variants of the gather kernel on the card, for tuning.
 
     python -m demfi_torch.utils.gather_variants [variant ...]
+    python -m demfi_torch.utils.gather_variants --bwd [variant ...]
 
 Each variant is ``csrc/bilinear_gather.cu`` with a few constants or lines
 replaced (tile sizes, pixels per thread, channels per block, the store
@@ -11,6 +12,25 @@ bit for bit. Device milliseconds as ``chip_smoke.py`` times them (a cold
 call queued behind a spin kernel). Beside them: ``fill_`` of the two
 absolute shapes' outputs, the card's practical rate for a pure store
 stream, and the host microseconds of the pieces of a wrapper call.
+
+With ``--bwd`` the variants are those of ``csrc/bilinear_gather_bwd.cu``
+(the box in float32 with shared float atomics, a lane taking its left
+neighbour's shared taps, the bfloat16 rounding pass element by element,
+no prefetch of the next channel's loads,
+register caps, the box's size, the largest box on the box route;
+"global" sends every block to the global route, the first design's
+scatter; and diagnostic cuts that leave work out), called on the train
+step's three sites (the C=64 feature pair, FGAC's absolute sample, the
+C=3 booster pair; batch 2, 256x256): on synthetic inputs
+(``chip_smoke.gather_bwd_sites``: smooth flows that peak at 24 px) at
+float32 and with bfloat16 images, and on DeMFI-Net_rb(5,3)'s own Stage
+I as ``chip_smoke.py`` phase 7(a) makes them (float32). First, per
+site, the quantiles of the kernel's box area over 8x32 query tiles and
+over single rows of 32. Then device milliseconds of the kernel alone
+(its outputs zeroed once before), the share of blocks on the box route,
+and whether grad_coords equals the unchanged source's bit for bit and
+grad_img's float32 sums agree with its to 1e-5 of their largest value
+(the global reductions add in a varying order).
 
 A substitution that no longer applies to the source raises: the list
 describes this source, update it with the kernel.
@@ -25,10 +45,11 @@ import tempfile
 import time
 from pathlib import Path
 
+import numpy as np
 import torch
 import torch.nn.functional as F
 
-from demfi_torch.ops import kernels
+from demfi_torch.ops import kernels, warp
 
 H, W = 352, 640
 BOUNDS = "__launch_bounds__(kTX * kTY)\nbilinear"
@@ -61,12 +82,86 @@ VARIANTS = {
 }
 
 
-def build(names, tmp: Path):
-    src = (kernels.CSRC / kernels.SOURCES["bilinear_gather"]).read_text()
+BWD_FIXED = """        // exact: a power-of-two scale, then integers below 2^50
+        const float v = rintf(__fmul_rn(val[k], scale));
+        const float hi = floorf(__fmul_rn(v, kLowUnit));
+        const float lo = __fsub_rn(v, __fmul_rn(hi, kLowScale));
+        atomicAdd(hi_plane + slot[k], __float2int_rz(hi));
+        if (lo != 0.0f) atomicAdd(lo_plane + slot[k], __float2int_rz(lo));"""
+BWD_LOAD = "if (c + 1 < C) next.load(g, p, c + 1, nq, hw, off);"
+BWD_TERMS = """      float val[4];
+      channel_terms(cur, wt, dwx, dwy, val, gcx, gcy);"""
+BWD_ADDS = "      int* hi_plane = box + 2 * ch * area;"
+BWD_CC = "  // a channel takes two planes: the high parts, then the low ones"
+# lane i's right taps are lane i + 1's left ones where their bases are
+# neighbours: lane i + 1 adds both (the loop runs on every lane, for the
+# shuffles)
+PAIRS = [
+    (BWD_CC, """  const int nty = __shfl_down_sync(kAll, ty, 1);
+  const int ntx = __shfl_down_sync(kAll, tx, 1);
+  const bool nlive = __shfl_down_sync(kAll, (int)live, 1);
+  const bool give = live && nlive && lane < 31 && nty == ty && ntx == tx + 1;
+  const bool take = __shfl_up_sync(kAll, (int)give, 1) && lane > 0;
+""" + BWD_CC),
+    ("    for (int ch = 0; live && ch < nc; ++ch) {",
+     "    for (int ch = 0; ch < nc; ++ch) {"),
+    (BWD_LOAD, "if (live && c + 1 < C) next.load(g, p, c + 1, nq, hw, off);"),
+    (BWD_TERMS, """      float val[4] = {0.0f, 0.0f, 0.0f, 0.0f};
+      if (live) channel_terms(cur, wt, dwx, dwy, val, gcx, gcy);"""),
+    (BWD_ADDS, """      const float in1 = __shfl_up_sync(kAll, val[1], 1);
+      const float in3 = __shfl_up_sync(kAll, val[3], 1);
+      if (take) {
+        val[0] = __fadd_rn(val[0], in1);
+        val[2] = __fadd_rn(val[2], in3);
+      }
+      if (give) val[1] = val[3] = 0.0f;
+""" + BWD_ADDS),
+]
+
+
+def _sub(old, new):
+    return [(old, new)]
+
+
+BWD_VARIANTS = {
+    "base": [],
+    # the box in float32 with shared float atomics (compare-and-swap loops)
+    "float_box": _sub(BWD_FIXED, "        atomicAdd(reinterpret_cast<float*>("
+                                 "hi_plane) + slot[k], val[k]);")
+    + [(f"to_float(h.{e}, l.{e}, unscale)", f"__int_as_float(h.{e})")
+       for e in "xyzw"],
+    "pairs": PAIRS,
+    # the bfloat16 rounding pass element by element
+    "scalar_round": _sub("  if (vec && i + 3 < n) {", "  if (false) {"),
+    # each channel's loads issued where they are used
+    "noprefetch": _sub("const Channel<T> cur = next;",
+                       "Channel<T> cur;\n      cur.load(g, p, c, nq, hw, off);")
+    + _sub(BWD_LOAD, ";"),
+    "3blocks": _sub("__launch_bounds__(kThreads, kMinBlocks)",
+                    "__launch_bounds__(kThreads)"),
+    "5blocks": _sub("kMinBlocks = 4", "kMinBlocks = 5"),
+    "box4k": _sub("kBoxWords = 8192", "kBoxWords = 4096"),
+    "box16k": _sub("kBoxWords = 8192", "kBoxWords = 16384"),
+    "area1k": _sub("kMaxArea = 2048", "kMaxArea = 1024"),
+    "area4k": _sub("kMaxArea = 2048", "kMaxArea = 4096"),
+    "global": _sub("kMaxArea = 2048", "kMaxArea = -1"),
+    # diagnostic cuts: they leave work out (and DIFFER by design)
+    "cut_prepass": _sub("""      big = max(big, __float_as_uint(__ldg(g + (int64_t)c * nq)) &
+                         0x7fffffffu);""", "      big = 0x3f800000u;"),
+    "cut_atomics": _sub(BWD_FIXED, ";"),
+    "cut_flush": _sub("atomicAdd(reinterpret_cast<float4*>(dst), v);", ";"),
+    "cut_taps": _sub("tap[k] = tap_f32(p + (int64_t)c * hw + off[k]);",
+                     "tap[k] = 1.0f;"),
+}
+
+
+def build(names, tmp: Path, kernel: str = "bilinear_gather",
+          variants=VARIANTS):
+    src = (kernels.CSRC / kernels.SOURCES[kernel]).read_text()
     procs = {}
     for name in names:
         text = src
-        for old, new in VARIANTS[name]:
+        for old, new in variants[name]:
             if old not in text:
                 raise ValueError(f"{name}: {old!r} is not in the source")
             text = text.replace(old, new)
@@ -80,10 +175,162 @@ def build(names, tmp: Path):
         log = proc.communicate()[0].decode(errors="replace")
         if proc.returncode != 0:
             raise RuntimeError(f"{name}:\n{log}")
-        lib = kernels._bind("bilinear_gather",
-                            ctypes.CDLL(str(tmp / f"{name}.so")))
+        lib = kernels._bind(kernel, ctypes.CDLL(str(tmp / f"{name}.so")))
         libs[name] = (lib, ",".join(re.findall(r"Used (\d+) registers", log)))
     return libs
+
+
+def model_bwd_sites(dev) -> dict:
+    """The three sites on DeMFI-Net_rb(5,3)'s own Stage I at the train
+    step's shapes, as ``chip_smoke.py`` phase 7(a) makes them (its seeds,
+    the flow head calibrated to 24 px): the features f0, f1 warped by the
+    t-aligned CFR flows, FGAC's sample of f0 at flow_01's raw values, the
+    two blurry frames warped by the same flows; float32 images."""
+    from chip_smoke import FLOW_TARGET_PX, SEED, TRAIN_B, TRAIN_PS
+    from demfi_torch.config import config_rb
+    from demfi_torch.models import make_model
+    from demfi_torch.ops import cfr_flow_t_align
+    from demfi_torch.utils.profiling import calibrate_flow_head
+    batch = np.random.RandomState(SEED + 5).uniform(
+        -1, 1, (TRAIN_B, 9, TRAIN_PS, TRAIN_PS, 3)).astype(np.float32)
+    inputs = torch.from_numpy(batch).to(dev)[:, :4].permute(
+        0, 1, 4, 2, 3).contiguous()
+    model = make_model(config_rb(5, 3, seed=SEED), device=dev)
+    calibrate_flow_head(model, inputs, FLOW_TARGET_PX)
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    with torch.no_grad():
+        ctx = model.extract(inputs)
+        tt = torch.tensor([0.375, 0.625], device=dev).reshape(-1, 1, 1, 1)
+        ft0, ft1 = cfr_flow_t_align(ctx.flow_01, ctx.flow_10, tt)
+
+    def cot(like):
+        return torch.randn(like.shape, device=dev, generator=gen)
+    f0, f1 = ctx.f0.contiguous(), ctx.f1.contiguous()
+    b0, b1 = inputs[:, 0].contiguous(), inputs[:, 1].contiguous()
+    return {"model pair rel C=64": ([(f0, ft0, cot(f0)), (f1, ft1, cot(f1))],
+                                    True),
+            "model abs C=64 (FGAC)": ([(f0, ctx.flow_01.contiguous(),
+                                        cot(f0))], False),
+            "model pair rel C=3": ([(b0, ft0, cot(b0)), (b1, ft1, cot(b1))],
+                                   True)}
+
+
+def box_areas(coords, relative: bool, h: int, w: int, rows: int):
+    """Per query tile of ``rows`` x 32 pixels with a live pixel: the area
+    (floats a channel) of the box of its live pixels' tap bases, one row
+    and column more, clipped to the image, columns widened to groups of
+    4, as the backward kernel sizes it."""
+    b, _, hq, wq = coords.shape
+    px, py = coords[:, 0], coords[:, 1]
+    keep = torch.ones((b, hq, wq), dtype=torch.bool, device=coords.device)
+    if relative:
+        px = px + torch.arange(wq, device=coords.device)
+        py = py + torch.arange(hq, device=coords.device)[:, None]
+        ones = torch.ones((b, 1, h, w), device=coords.device)
+        keep = warp.bilinear_gather_plain(ones, coords, True)[1][:, 0] >= 0.999
+    x0, y0 = torch.floor(px), torch.floor(py)
+    inside = torch.zeros_like(keep)
+    for dy in (0, 1):
+        for dx in (0, 1):
+            inside |= ((x0 + dx >= 0) & (x0 + dx < w) & (y0 + dy >= 0)
+                       & (y0 + dy < h))
+    live = keep & inside
+    big = float(2 ** 30)
+    shape = (b, hq // rows, rows, wq // 32, 32)   # whole tiles only
+    live = live[:, :shape[1] * rows, :shape[3] * 32].reshape(shape)
+
+    def lo_hi(v):
+        v = v[:, :shape[1] * rows, :shape[3] * 32].reshape(shape)
+        lo = torch.where(live, v, big).amin(dim=(2, 4))
+        hi = torch.where(live, v, -big).amax(dim=(2, 4))
+        return lo, hi
+    (rlo, rhi), (clo, chi) = lo_hi(y0), lo_hi(x0)
+    any_live = live.any(dim=(2, 4))
+    rb = rlo.clamp(min=0)
+    bh = torch.minimum(rhi + 1, torch.tensor(h - 1.0)) - rb + 1
+    cb = torch.div(clo.clamp(min=0), 4, rounding_mode="floor") * 4
+    ce = torch.div(torch.minimum(chi + 1, torch.tensor(w - 1.0)), 4,
+                   rounding_mode="floor") * 4 + 3
+    return ((bh * (ce - cb + 1))[any_live]).float()
+
+
+def main_bwd(names) -> int:
+    """The backward's variants on the train step's three sites."""
+    from chip_smoke import DeviceTimer, gather_bwd_sites
+    dev = torch.device("cuda")
+    sites = gather_bwd_sites(torch, dev)
+    sites.update(model_bwd_sites(dev))
+    for key, (halves, relative) in sites.items():
+        if "bf16" in key:
+            continue
+        h, w = halves[0][0].shape[2:]
+        for rows in (8, 1):
+            a = torch.cat([box_areas(co, relative, h, w, rows)
+                           for _, co, _ in halves])
+            q = torch.quantile(a, torch.tensor([0.5, 0.9, 0.99, 1.0],
+                                               device=dev)).tolist()
+            print(f"{key}: box area of a {rows}x32 query tile, floats a "
+                  f"channel: median {q[0]:.0f}, 90 % {q[1]:.0f}, 99 % "
+                  f"{q[2]:.0f}, max {q[3]:.0f} ({a.numel()} tiles)")
+    timer = DeviceTimer(torch)
+    stats = torch.zeros(2, dtype=torch.int64, device=dev)
+    outs = {}
+    for key, (halves, _) in sites.items():
+        n, c, h, w = halves[0][0].shape
+        batch = len(halves) * n
+        hq, wq = halves[0][1].shape[2:]
+        outs[key] = (torch.zeros(batch, c, h, w, device=dev),
+                     torch.empty(batch, c, h, w, dtype=halves[0][0].dtype,
+                                 device=dev),
+                     torch.empty(batch, 2, hq, wq, device=dev))
+
+    def call(lib, key, route_stats=None):
+        halves, relative = sites[key]
+        acc, gimg, gco = outs[key]
+        (a, ca, ga) = halves[0]
+        second = halves[1] if len(halves) == 2 else (None, None, None)
+        ptrs = [None if t is None else t.data_ptr()
+                for t in (a, second[0], ca, second[1], ga, second[2])]
+        n, c, h, w = a.shape
+        tail = (gco.data_ptr(), None if route_stats is None
+                else route_stats.data_ptr(), n, c, h, w, ca.shape[2],
+                ca.shape[3], int(relative),
+                torch.cuda.current_stream().cuda_stream)
+        if a.dtype == torch.float32:
+            rc = lib.demfi_bilinear_gather_bwd_f32(*ptrs, acc.data_ptr(), *tail)
+        else:
+            rc = lib.demfi_bilinear_gather_bwd_bf16(*ptrs, acc.data_ptr(),
+                                                    gimg.data_ptr(), *tail)
+        if rc != 0:
+            raise RuntimeError(f"cudaError {rc}")
+
+    print(torch.cuda.get_device_name(0))
+    want = {}
+    with tempfile.TemporaryDirectory(prefix="gather_bwd_variants_") as tmp:
+        libs = build(names, Path(tmp), "bilinear_gather_bwd", BWD_VARIANTS)
+        print("variant (registers) | " + " | ".join(
+            f"{k} ms, box share" for k in sites) + "   [device ms]")
+        for name, (lib, regs) in libs.items():
+            cells = []
+            for key in sites:
+                acc, gimg, gco = outs[key]
+                acc.zero_()
+                stats.zero_()
+                call(lib, key, stats)
+                torch.cuda.synchronize()
+                # the float32 sums (a bfloat16 rounding of sums taken in
+                # another order may differ by one bfloat16 step)
+                got_i = acc
+                wi, wc = want.setdefault(key, (got_i.clone(), gco.clone()))
+                same = (torch.equal(gco, wc) and float(
+                    (got_i - wi).abs().max()) <= 1e-5 * max(
+                        1.0, float(wi.abs().max())))
+                box, glob = (int(v) for v in stats.cpu())
+                ms = timer.ms(lambda: call(lib, key), 10)
+                cells.append(f"{ms:.4f}, {box / max(1, box + glob):.3f}"
+                             + ("" if same else " DIFFERS"))
+            print(f"{name} ({regs}) | " + " | ".join(cells), flush=True)
+    return 0
 
 
 def main(argv) -> int:
@@ -91,6 +338,8 @@ def main(argv) -> int:
         print("gather_variants: needs a CUDA card", file=sys.stderr)
         return 1
     sys.path.insert(0, str(Path(__file__).resolve().parents[2]))
+    if argv[:1] == ["--bwd"]:
+        return main_bwd(argv[1:] or list(BWD_VARIANTS))
     from chip_smoke import DeviceTimer       # the repository's timing
     names = argv or list(VARIANTS)
     dev = torch.device("cuda")

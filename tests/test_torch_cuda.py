@@ -15,7 +15,8 @@ cuDNN and of the CPU sum in different orders). The backward kernels
 against their plain vjps (autograd through the plain versions): 1e-5 of
 the largest value per output (the gather's backward adds onto the taps
 with float atomics, in an order that varies from run to run; both sum
-in another order than autograd); the splat's backward repeats bitwise.
+in another order than autograd; its coordinates' gradient repeats
+bitwise); the splat's backward repeats bitwise.
 Gradients of the whole network, card against CPU: a relative Frobenius
 error of 1e-3 or less per tensor.
 """
@@ -595,17 +596,22 @@ def test_gather_bwd_kernel_matches_plain_vjp(cuda_device, c, relative, kind):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("flows", ["noise", "tile_constant"])
 @pytest.mark.parametrize("c", [3, 64])
-def test_gather_pair_bwd_is_one_launch(cuda_device, c):
+def test_gather_pair_bwd_is_one_launch(cuda_device, c, flows):
     """bwarp_pair's backward: one launch over both halves, each half equal
     to the single backward's result (its coordinates' gradient bitwise,
-    a per-pixel sum in one thread)."""
+    a per-pixel sum in one thread), on 9 px noise flows (both routes) and
+    on tile-constant flows (every block on the box route)."""
     rng = np.random.RandomState(c)
     b, h, w = 2, 40, 56
     t = [torch.from_numpy(x.astype(np.float32)).to(cuda_device) for x in (
         rng.randn(b, c, h, w), rng.randn(b, c, h, w),
         rng.randn(b, 2, h, w) * 9, rng.randn(b, 2, h, w) * 9,
         rng.randn(b, c, h, w), rng.randn(b, c, h, w))]
+    if flows == "tile_constant":
+        t[2], t[3] = (torch.from_numpy(_tile_constant(rng, b, h, w)).to(
+            cuda_device) for _ in range(2))
     a, bb, fa, fb, ga, gb = t
     n = kernels.bilinear_gather_bwd.launches
     (gia, gib), (gca, gcb) = kernels.bilinear_gather_pair_bwd(
@@ -619,6 +625,130 @@ def test_gather_pair_bwd_is_one_launch(cuda_device, c):
         pi, pc = warp.bilinear_gather_plain_vjp(img, co, True, g)
         _within(gi, pi)
         _within(gc, pc)
+
+
+BWD_TILE = (8, 32)      # bilinear_gather_bwd.cu's query tile: rows, columns
+BWD_MAX_AREA = 2048     # its largest box (floats a channel) on the box route
+
+
+def _tile_constant(rng, b, h, w) -> np.ndarray:
+    """Relative flows [b,2,h,w] of one offset (up to +-6 px) per 8x32
+    query tile: every tile's taps form a box of about 9x40."""
+    ty, tx = BWD_TILE
+    per = rng.uniform(-6, 6, (b, 2, -(-h // ty), -(-w // tx)))
+    return np.ascontiguousarray(
+        np.repeat(np.repeat(per, ty, 2), tx, 3)[:, :, :h, :w], np.float32)
+
+
+def _bwd_route_case(rng, case, b):
+    """(coords [b,2,h,w] float32, relative, h, w) for the backward's
+    routes: "smooth" (tile-constant relative flows, W a multiple of 4),
+    "ragged" (the same at W % 4 != 0: a scalar flush), "noise" (i.i.d.
+    relative flows of 12-40 px either way: boxes far beyond the buffer),
+    "mixed" (the top 32 rows smooth, the rest noise) or "fgac" (smooth
+    absolute coordinates inside a 25x25 corner of a 256x256 plane, as
+    FGAC's raw flow values put every tile's taps near the origin)."""
+    if case == "fgac":
+        h = w = 256
+        yy, xx = np.meshgrid(np.arange(h), np.arange(w), indexing="ij")
+        ph = rng.uniform(0, 6, (b, 1, 1))
+        co = np.stack([12 + 10 * np.sin(xx / 57.0 + yy / 83.0 + ph),
+                       12 + 10 * np.cos(yy / 61.0 - xx / 79.0 + ph)], 1)
+        co = co + rng.uniform(-0.5, 0.5, co.shape)
+        return np.ascontiguousarray(co, np.float32), False, h, w
+    h, w = {"smooth": (37, 96), "ragged": (37, 75)}.get(case, (96, 160))
+    smooth = _tile_constant(rng, b, h, w)
+    noise = (rng.uniform(12, 40, (b, 2, h, w))
+             * rng.choice([-1.0, 1.0], (b, 2, h, w))).astype(np.float32)
+    if case in ("smooth", "ragged"):
+        return smooth, True, h, w
+    if case == "noise":
+        return noise, True, h, w
+    return np.concatenate([smooth[:, :, :32], noise[:, :, 32:]], 2), True, h, w
+
+
+def _bwd_routes(coords, relative, h, w):
+    """(box, global): the blocks that must take each route. A pixel is
+    live if the mask keeps it and a tap lies in the image; a block's box
+    spans its live pixels' tap bases plus one row and column, clipped to
+    the image, its columns widened to groups of 4."""
+    co = torch.from_numpy(coords)
+    b, _, hq, wq = co.shape
+    px, py = co[:, 0], co[:, 1]
+    keep = torch.ones(b, hq, wq, dtype=torch.bool)
+    if relative:
+        px = px + torch.arange(wq, dtype=torch.float32)
+        py = py + torch.arange(hq, dtype=torch.float32)[:, None]
+        ones = warp.bilinear_gather_plain(torch.ones(b, 1, h, w), co, True)[1]
+        keep = ones[:, 0] >= 0.999
+    x0, y0 = torch.floor(px), torch.floor(py)
+    inside = torch.zeros_like(keep)
+    for dy in (0, 1):
+        for dx in (0, 1):
+            inside |= ((x0 + dx >= 0) & (x0 + dx < w) & (y0 + dy >= 0)
+                       & (y0 + dy < h))
+    live = keep & inside
+    ty, tx = BWD_TILE
+    box = spread = 0
+    for i in range(b):
+        for r in range(0, hq, ty):
+            for c in range(0, wq, tx):
+                sel = live[i, r:r + ty, c:c + tx]
+                if not bool(sel.any()):
+                    box += 1
+                    continue
+                rows = y0[i, r:r + ty, c:c + tx][sel].long()
+                cols = x0[i, r:r + ty, c:c + tx][sel].long()
+                rb = max(int(rows.min()), 0)
+                bh = min(int(rows.max()) + 1, h - 1) - rb + 1
+                cb = max(int(cols.min()), 0) & ~3
+                bw = ((min(int(cols.max()) + 1, w - 1) | 3) - cb) + 1
+                if bh * bw > BWD_MAX_AREA:
+                    spread += 1
+                else:
+                    box += 1
+    return box, spread
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("case", ["smooth", "noise", "fgac", "mixed",
+                                  "ragged"])
+@pytest.mark.parametrize("c", [1, 3, 5, 64])
+def test_gather_bwd_routes_match_plain_vjp(cuda_device, c, case, dtype):
+    """The backward's two routes: one launch, each block on the route its
+    taps' box calls for (counted by the kernel), within 1e-5 of the plain
+    vjp's largest value (a bfloat16 image's gradient 1e-2), and
+    grad_coords bitwise equal from run to run. C = 5 is no multiple of a
+    chunk; C = 64 takes several chunks of the box."""
+    rng = np.random.RandomState(c * 100 + len(case))
+    b = 2
+    coords, relative, h, w = _bwd_route_case(rng, case, b)
+    img = torch.from_numpy(rng.randn(b, c, h, w).astype(np.float32)).to(
+        cuda_device).to(dtype)
+    co = torch.from_numpy(coords).to(cuda_device)
+    gout = torch.from_numpy(rng.randn(b, c, h, w).astype(np.float32)).to(
+        cuda_device)
+    stats = torch.zeros(2, dtype=torch.int64, device=cuda_device)
+    n = kernels.bilinear_gather_bwd.launches
+    gi, gc = kernels.bilinear_gather_bwd(img, co, relative, gout,
+                                         route_stats=stats)
+    torch.cuda.synchronize()
+    assert kernels.bilinear_gather_bwd.launches == n + 1
+    assert gi.dtype == dtype and gc.dtype == torch.float32
+    pi, pc = warp.bilinear_gather_plain_vjp(img, co, relative, gout)
+    _within(gi.float(), pi.float(), 1e-2 if dtype == torch.bfloat16 else 1e-5)
+    _within(gc, pc)
+    _, gc2 = kernels.bilinear_gather_bwd(img, co, relative, gout)
+    assert torch.equal(gc, gc2)
+    box, spread = (int(v) for v in stats.cpu())
+    assert (box, spread) == _bwd_routes(coords, relative, h, w)
+    if case in ("smooth", "ragged", "fgac"):
+        assert spread == 0
+    elif case == "noise":
+        assert box == 0
+    else:
+        assert box > 0 and spread > 0
 
 
 @pytest.mark.cuda

@@ -417,15 +417,38 @@ def test_fgac_correlate_grads(rr, sr):
                  [ref_k, src_k, flow], 6)
 
 
-def test_plain_vjps_are_the_jax_vjps():
+def _vjp_case(case: str):
+    """(img, flow, gout, gnorm) NHWC for the plain-vjp check: "mixed"
+    (0 to +-40 px), "tile_constant" (one offset per 8x32 tile: every
+    query tile of the card's backward takes its shared-memory box),
+    "corner_abs" (values in [0, 5): as absolute coordinates every tap
+    falls in a 6x6 corner, as FGAC's raw flows put them near the origin)
+    or "ragged" (a width that is not a multiple of 4: the card flushes its
+    box entry by entry)."""
+    rng = np.random.RandomState(VJP_CASES.index(case) + 8)
+    b, (h, w) = 2, {"tile_constant": (16, 40), "corner_abs": (16, 24),
+                    "ragged": (12, 21)}.get(case, (12, 20))
+    img = rng.uniform(-1, 1, (b, h, w, 3)).astype(np.float32)
+    if case == "tile_constant":
+        flow = _fwarp_flows("tile_constant", rng, b, h, w)
+    elif case == "corner_abs":
+        flow = rng.uniform(0, 5, (b, h, w, 2)).astype(np.float32)
+    else:
+        flow = _flows("mixed", rng, b, h, w)
+    gout = rng.randn(b, h, w, 3).astype(np.float32)
+    gnorm = rng.randn(b, h, w, 1).astype(np.float32)
+    return img, flow, gout, gnorm
+
+
+VJP_CASES = ("mixed", "tile_constant", "corner_abs", "ragged")
+
+
+@pytest.mark.parametrize("case", VJP_CASES)
+def test_plain_vjps_are_the_jax_vjps(case):
     """The backward kernels' plain versions, and the backward wrappers on
     CPU tensors, against jax.vjp of _bwarp_xla, _bilinear_abs_xla and
     _fwarp_xla; nothing is launched."""
-    rng = np.random.RandomState(8)
-    img = rng.uniform(-1, 1, (2, 12, 20, 3)).astype(np.float32)
-    flow = _flows("mixed", rng, 2, 12, 20)
-    gout = rng.randn(2, 12, 20, 3).astype(np.float32)
-    gnorm = rng.randn(2, 12, 20, 1).astype(np.float32)
+    img, flow, gout, gnorm = _vjp_case(case)
     before = kernels.launch_counts()
     for relative, jfn in ((True, jwarp._bwarp_xla),
                           (False, jwarp._bilinear_abs_xla)):
@@ -483,7 +506,7 @@ def test_autograd_functions_route_to_the_backward_kernels(monkeypatch):
                 torch.cat([o for _, o in outs]) if relative and want_ones
                 else None)
 
-    def gather_bwd(halves, relative):
+    def gather_bwd(halves, relative, route_stats=None):
         r = [warp.bilinear_gather_plain_vjp(i, c, relative, g)
              for i, c, g in halves]
         kernels.bilinear_gather_bwd.launches += 1
