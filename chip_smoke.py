@@ -4,7 +4,7 @@
     python3 chip_smoke.py            # needs one CUDA card
     python3 chip_smoke.py --profile  # adds a torch.profiler breakdown of
                                      # one window and of one train step
-    python3 chip_smoke.py --kernels-of DIR   # phases 1-3c only, on the
+    python3 chip_smoke.py --kernels-of DIR   # phases 1-3d only, on the
                                      # checkout of the port at DIR
 
 Phases:
@@ -46,6 +46,10 @@ Phases:
      bfloat16 images: device ms, the share of blocks per route and the
      error against the plain vjp, so that two checkouts compare in one
      run;
+  3d. (``--kernels-of`` only) the splat's backward on CFR's two halves at
+     the train step's shapes on smooth synthetic flows: medians of cold
+     and of back-to-back calls, one launch a half and (where the
+     checkout has it) one launch on both, against the plain vjp;
   4. main path: x8 DeMFI-Net_rb(5,3), full width, seeded random weights,
      through InferenceEngine.forward_windows on one 352x640 window
      (warm-up, then timed runs; the rate is all windows over all their
@@ -83,9 +87,15 @@ Phases:
      flow head calibrated to about 24 px: the gather's on both C=64
      bwarp_pairs (one launch), FGAC's absolute sample and the C=3 booster
      pair, with aten.grid_sampler_2d_backward (on the masked cotangent) as
-     a yardstick; the splat's on the CFR flows, i.i.d. noise flows and
+     a yardstick; the splat's as CFR takes it, both warps in one launch
+     on both halves, on the CFR flows, i.i.d. noise flows and
      non-finite flows (dropped pixels get zero gradients), twice for a
-     bitwise comparison; each with device ms, enqueue us, bound and the
+     bitwise comparison, and beside it the same halves as one launch
+     each (the parent's count; phase 3d times the parent's kernel
+     itself): per step the median of
+     21 cold calls and of 21 back-to-back calls of each, whether the two
+     give the same bits, and an empty kernel on the pair's grid (the
+     launch floor); each with device ms, enqueue us, bound and the
      plain vjp's ms, the gather's with the share of its blocks per route
      (shared box or global atomics); the gather's three sites again on
      bfloat16 images (their gradient within 1e-2 of the largest value,
@@ -102,8 +112,9 @@ Phases:
      at bfloat16, where the fault of every warp must fail it; (c) 8 steps
      on one fixed batch: the loss falls; seconds per step, forward /
      backward / optimizer device time (CUDA events), peak memory, and
-     exactly 9 gather, 9 gather-backward, 2 splat, 2 splat-backward and
-     no stencil launches per step; then steps with cudnn.benchmark off
+     exactly 9 gather, 9 gather-backward, 2 splat, 1 splat-backward (the
+     pair) and no stencil launches per step; then steps with
+     cudnn.benchmark off
      and on in turns;
      (c') the same at bfloat16 from the same weights (7 of the 9 gathers
      and gather-backwards on the bfloat16 instantiation; parameters,
@@ -114,7 +125,17 @@ Phases:
      (starts at epoch 2, Adam's step count carried over), then ``--phase
      test`` on the trained checkpoint (strict load); then one epoch at
      ``--compute_dtype bfloat16``, whose float32 checkpoint loads into a
-     float32 model.
+     float32 model;
+  8. data parallelism: an NCCL process group of one on the card
+     (``demfi_torch.parallel.init_distributed`` on a 127.0.0.1 port), 4
+     train steps at phase 7(c)'s setting through ``data_parallel`` beside
+     two plain runs from the same weights: every gradient DDP leaves
+     bitwise the local gradient of the same backward, the launches of
+     7(c), whole runs bitwise equal where two plain runs are; seconds per
+     step plain, through data_parallel and through DDP with
+     find_unused_parameters;
+     then ``cli --phase train --coordinator_address 127.0.0.1:<port>
+     --num_processes 1 --process_id 0`` for one epoch on 7(d)'s tree.
 
 Prints a {"kernels": [...]} line, then as its last line
 {"ok": true, "device": {"platform": "gpu", ...}}. Any failed phase exits
@@ -124,11 +145,13 @@ from __future__ import annotations
 
 import argparse
 import contextlib
+import ctypes
 import dataclasses
 import inspect
 import io
 import json
 import os
+import socket
 import subprocess
 import sys
 import tempfile
@@ -172,9 +195,10 @@ TRAIN_SMALL = 64               # card against CPU
 BWD_RTOL = 1e-5
 STEP_LOSS_RTOL = 1e-4
 OVERFIT_STEPS, OVERFIT_WARMUP = 8, 2
-# per train step: 2 FGAC + 2 feature pairs + 5 booster pairs; 2 CFR splats
+# per train step: 2 FGAC + 2 feature pairs + 5 booster pairs; 2 CFR
+# splats, whose backwards are one launch on both halves
 TRAIN_LAUNCHES = {"bilinear_gather": 9, "fwarp_splat": 2, "fwarp_shift": 0,
-                  "bilinear_gather_bwd": 9, "fwarp_splat_bwd": 2}
+                  "bilinear_gather_bwd": 9, "fwarp_splat_bwd": 1}
 CLI_TRAIN_SCENES, CLI_BLUR_FRAMES = 4, 4
 # bfloat16 (--compute_dtype bfloat16): the feature and booster pairs
 # gather bfloat16 values, FGAC's two samples stay float32
@@ -192,6 +216,20 @@ BF16_MOMENTS_TOL = 0.08
 # of the host or the card falls on both sides
 BENCHMARK_ROUNDS = 2
 BF16_LOSS_RTOL = 1e-2          # a bfloat16 train step's loss, card vs CPU
+# the splat's backward takes a few microseconds: medians of this many
+# calls, cold and back to back
+SPLAT_BWD_CALLS = 21
+DDP_STEPS = 4                  # phase 8: steps per run (timed after the first)
+EMPTY_KERNEL_SRC = r"""
+#include <cuda_runtime.h>
+__global__ void demfi_empty_kernel() {}
+extern "C" int demfi_empty_launch(int gx, int gy, int gz, int tx, int ty,
+                                  void* stream) {
+  demfi_empty_kernel<<<dim3(gx, gy, gz), dim3(tx, ty), 0,
+                       (cudaStream_t)stream>>>();
+  return (int)cudaGetLastError();
+}
+"""
 
 
 def fail(msg: str) -> None:
@@ -250,8 +288,8 @@ class DeviceTimer:
         e1.synchronize()
         self.cycles_per_us = cycles / (e0.elapsed_time(e1) * 1e3)
 
-    def ms(self, fn, n: int) -> float:
-        """Mean device milliseconds of fn over n cold calls."""
+    def times(self, fn, n: int) -> list:
+        """Device milliseconds of fn in each of n cold calls."""
         torch = self.torch
         # the spin covers twice the host's enqueue of one call, and 50 us
         spin = int((2 * enqueue_us(torch, fn, 1) + 50) * self.cycles_per_us)
@@ -265,7 +303,29 @@ class DeviceTimer:
             e1.record()
             pairs.append((e0, e1))
         torch.cuda.synchronize()
-        return sum(a.elapsed_time(b) for a, b in pairs) / n
+        return [a.elapsed_time(b) for a, b in pairs]
+
+    def ms(self, fn, n: int) -> float:
+        """Mean device milliseconds of fn over n cold calls."""
+        return sum(self.times(fn, n)) / n
+
+    def back_to_back(self, fn, n: int) -> list:
+        """Device milliseconds of fn in each of n calls queued back to
+        back behind one spin that covers the host's enqueue of all of
+        them: an event between each two calls, no flush (inputs that fit
+        the 50 MB L2 stay there)."""
+        torch = self.torch
+        spin = int((2 * n * enqueue_us(torch, fn, 1) + 50)
+                   * self.cycles_per_us)
+        evs = [torch.cuda.Event(enable_timing=True) for _ in range(n + 1)]
+        torch.cuda.synchronize()
+        torch.cuda._sleep(spin)
+        evs[0].record()
+        for e in evs[1:]:
+            fn()
+            e.record()
+        torch.cuda.synchronize()
+        return [a.elapsed_time(b) for a, b in zip(evs, evs[1:])]
 
 
 def benchmark_ab(torch, fn) -> dict:
@@ -379,6 +439,27 @@ def gather_bwd_sites(torch, dev) -> dict:
     return sites
 
 
+def empty_kernel(torch, tmp: Path):
+    """An empty kernel, built with the kernels' nvcc flags, as a function
+    of its grid that launches it with 32 x 8 threads on the current
+    stream: the launch floor under a kernel of that grid."""
+    from demfi_torch.ops import kernels
+    src, lib = tmp / "empty_kernel.cu", tmp / "libempty_kernel.so"
+    src.write_text(EMPTY_KERNEL_SRC)
+    res = subprocess.run([kernels._nvcc(), *kernels.NVCC_FLAGS, "-o",
+                          str(lib), str(src)], capture_output=True, text=True,
+                         timeout=300)
+    check(res.returncode == 0, f"empty kernel: {res.stdout}{res.stderr}")
+    fn = ctypes.CDLL(str(lib)).demfi_empty_launch
+    fn.argtypes = [ctypes.c_int] * 5 + [ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+
+    def launch(grid):
+        rc = fn(*grid, 32, 8, torch._C._cuda_getCurrentRawStream(0))
+        check(rc == 0, f"empty kernel: cudaError {rc}")
+    return launch
+
+
 def splat_targets(torch, flo) -> int:
     """Distinct in-image pixels the forward splat of flo [B,2,H,W] lands
     on (the splat's vjp reads grad_out and grad_norm there only)."""
@@ -484,10 +565,13 @@ def train_phase(torch, dev, data_root: Path, tmp: Path,
     bwd_rows = []
 
     def bwd_row(kernel, name, per_step, fn, plain, library, pairs, nbytes,
-                ops, note="", tols=None, per_step_bf16=0, routes=""):
+                ops, note="", tols=None, per_step_bf16=0, routes="",
+                times=None):
         """One backward case: pairs() gives (kernel result, plain vjp
         result) tensors, ``tols`` their tolerances (BWD_RTOL each by
-        default); fn() launches once; ``routes`` ends the printed line."""
+        default); fn() launches once; ``routes`` ends the printed line.
+        ``times()``, where given, returns the row's timing fields in
+        place of the mean of 10 cold calls (``ms`` among them)."""
         n0 = getattr(kernels, kernel).launches
         got_want = [(a.float(), b.float()) for a, b in pairs()]
         torch.cuda.synchronize()
@@ -499,7 +583,8 @@ def train_phase(torch, dev, data_root: Path, tmp: Path,
                 for a, b in got_want]
         finite = all(bool(torch.isfinite(a).all()) for a, _ in got_want)
         r = dict(kernel=kernel, case=name, per_step=per_step,
-                 per_step_bf16=per_step_bf16, ms=timer.ms(fn, 10),
+                 per_step_bf16=per_step_bf16,
+                 **(dict(ms=timer.ms(fn, 10)) if times is None else times()),
                  enqueue_us=enqueue_us(torch, fn, ENQUEUE_CALLS),
                  plain_ms=timer.ms(plain, 3),
                  library_ms=None if library is None else timer.ms(library, 10),
@@ -634,55 +719,118 @@ def train_phase(torch, dev, data_root: Path, tmp: Path,
                 [(ctx.f0.bfloat16(), ctx.flow_01.contiguous(),
                   cot(nb, nf, ps, ps))], False)
 
-    img = ctx.flow_01.contiguous()
-    flo_smooth = (tt * ctx.flow_01).contiguous()
-    noise = np.random.RandomState(SEED + 6).uniform(
-        -FLOW_TARGET_PX, FLOW_TARGET_PX, tuple(flo_smooth.shape))
-    flo_noise = torch.from_numpy(noise.astype(np.float32)).to(dev)
-    bad = flo_smooth.cpu().numpy().copy()
-    where = np.random.RandomState(SEED + 7).rand(*bad.shape) < NONFINITE_SHARE
-    bad[where] = np.resize(np.array(NONFINITE_VALUES, np.float32),
-                           int(where.sum()))
-    flo_bad = torch.from_numpy(bad).to(dev)
-    with np.errstate(invalid="ignore"):
-        dropped = (~(np.isfinite(bad) & (np.abs(bad) < 1e8))).any(
-            1, keepdims=True)
-    bad = np.where(dropped, np.float32(1e9), bad).astype(np.float32)
-    flo_bad_dropped = torch.from_numpy(bad).to(dev)
-    gout = cot(*img.shape)
-    gnorm = cot(img.shape[0], 1, *img.shape[2:])
-    repeats = {}
-    for name, flo, want_flo, per_step in (
-            ("smooth", flo_smooth, flo_smooth, 2),
-            ("noise", flo_noise, flo_noise, 0),
-            ("non-finite", flo_bad, flo_bad_dropped, 0)):
-        def fn(flo=flo):
-            return kernels.fwarp_splat_bwd(img, flo, gout, gnorm)
+    # the splat's backward: CFR's two warps (flow_01 by t * flow_01,
+    # flow_10 by (1 - t) * flow_10) as one launch on both halves, and the
+    # same two halves as one launch each (the parent's count) in the same
+    # run
+    imgs = (ctx.flow_01.contiguous(), ctx.flow_10.contiguous())
+    smooth = ((tt * ctx.flow_01).contiguous(),
+              ((1.0 - tt) * ctx.flow_10).contiguous())
+    noise = tuple(torch.from_numpy(np.random.RandomState(SEED + 6 + k).uniform(
+        -FLOW_TARGET_PX, FLOW_TARGET_PX, tuple(f.shape)).astype(np.float32)
+        ).to(dev) for k, f in enumerate(smooth))
+    bad, bad_dropped = [], []
+    for k, f in enumerate(smooth):
+        v = f.cpu().numpy().copy()
+        where = (np.random.RandomState(SEED + 7 + 10 * k).rand(*v.shape)
+                 < NONFINITE_SHARE)
+        v[where] = np.resize(np.array(NONFINITE_VALUES, np.float32),
+                             int(where.sum()))
+        bad.append(torch.from_numpy(v).to(dev))
+        with np.errstate(invalid="ignore"):
+            dropped = (~(np.isfinite(v) & (np.abs(v) < 1e8))).any(
+                1, keepdims=True)
+        bad_dropped.append(torch.from_numpy(
+            np.where(dropped, np.float32(1e9), v).astype(np.float32)).to(dev))
+    cots = [(cot(*i.shape), cot(i.shape[0], 1, *i.shape[2:])) for i in imgs]
+    empty = empty_kernel(torch, tmp)
+    b, c, h, w = imgs[0].shape
+    # the grid of one launch on both halves (csrc/fwarp_splat_bwd.cu: 32 x
+    # 8 threads, a source pixel each, blockIdx.z over both halves)
+    pair_grid = (-(-w // 32), -(-h // 8), 2 * b)
+    floor = dict(cold=float(np.median(timer.times(
+        lambda: empty(pair_grid), SPLAT_BWD_CALLS))),
+        back_to_back=float(np.median(timer.back_to_back(
+            lambda: empty(pair_grid), SPLAT_BWD_CALLS))))
+    say(f"[7 train a] launch floor: an empty kernel on the two halves' grid "
+        f"{pair_grid} x (32, 8): median of {SPLAT_BWD_CALLS} cold calls "
+        f"{floor['cold']:.4f} ms, of {SPLAT_BWD_CALLS} back to back "
+        f"{floor['back_to_back']:.4f} ms")
+    repeats, same_as_singles = {}, {}
+    for name, flos, want_flos, per_step in (
+            ("smooth", smooth, smooth, 1),
+            ("noise", noise, noise, 0),
+            ("non-finite", tuple(bad), tuple(bad_dropped), 0)):
+        halves = [(i, f, go, gn) for i, f, (go, gn) in zip(imgs, flos, cots)]
 
-        def pairs(flo=flo, want_flo=want_flo):
-            return list(zip(fn(), warp.fwarp_splat_plain_vjp(
-                img, want_flo, gout, gnorm)))
-        b, c, h, w = img.shape
-        reached = splat_targets(torch, flo)
-        live = int(torch.isfinite(flo).all(1).sum())
-        # read: img, flo, grad_out and grad_norm at the targets; written:
-        # grad_img, grad_flo
-        nbytes = 4 * (img.numel() + flo.numel() + reached * (c + 1)
-                      + img.numel() + flo.numel())
-        ops = 4 * live * (4 * c + 10)
+        def fn(halves=halves):
+            return kernels.fwarp_splat_bwd_pair(*halves[0], *halves[1])
+
+        def singles(halves=halves):
+            return [kernels.fwarp_splat_bwd(*half) for half in halves]
+
+        def plain(want_flos=want_flos):
+            return [warp.fwarp_splat_plain_vjp(i, f, go, gn) for i, f, (go, gn)
+                    in zip(imgs, want_flos, cots)]
+
+        def pairs():
+            return [(g, p) for got, want in zip(fn(), plain())
+                    for g, p in zip(got, want)]
+
+        def times(fn=fn, singles=singles):
+            """Per step: the median of cold calls and of back-to-back
+            calls, of the pair and of one launch a half (and the
+            mean of the pair's cold calls, as earlier runs reported)."""
+            cold = timer.times(fn, SPLAT_BWD_CALLS)
+            return dict(
+                ms=float(np.median(cold)), ms_mean=float(np.mean(cold)),
+                ms_cold_range=[min(cold), max(cold)],
+                ms_back_to_back=float(np.median(timer.back_to_back(
+                    fn, SPLAT_BWD_CALLS))),
+                singles_ms=float(np.median(timer.times(
+                    singles, SPLAT_BWD_CALLS))),
+                singles_ms_back_to_back=float(np.median(timer.back_to_back(
+                    singles, SPLAT_BWD_CALLS))),
+                launch_floor_ms=floor["cold"],
+                launch_floor_ms_back_to_back=floor["back_to_back"])
+        nbytes = ops = 0
+        for f in flos:
+            reached = splat_targets(torch, f)
+            live = int(torch.isfinite(f).all(1).sum())
+            # read: img, flo, grad_out and grad_norm at the targets;
+            # written: grad_img, grad_flo
+            nbytes += 4 * (2 * imgs[0].numel() + reached * (c + 1)
+                           + 2 * f.numel())
+            ops += 4 * live * (4 * c + 10)
         got_want = bwd_row(
-            "fwarp_splat_bwd", f"splat bwd C=2 B={b} {name}", per_step, fn,
-            lambda f=want_flo: warp.fwarp_splat_plain_vjp(img, f, gout, gnorm),
-            None, pairs, nbytes, ops,
-            "; dropped pixels zero" if name == "non-finite" else "")
-        again = fn()
+            "fwarp_splat_bwd", f"splat bwd pair C={c} 2x{b} {name}", per_step,
+            fn, plain, None, pairs, nbytes, ops,
+            ("; dropped pixels zero" if name == "non-finite" else "")
+            + "; one launch", times=times)
+        r = bwd_rows[-1]
+        again = [t for half in fn() for t in half]
         repeats[name] = all(torch.equal(a, g) for (a, _), g in
                             zip(got_want, again))
         check(repeats[name], f"splat bwd {name}: two runs differ")
-        bwd_rows[-1]["two_runs_bitwise_equal"] = repeats[name]
+        single = [t for half in singles() for t in half]
+        same_as_singles[name] = all(torch.equal(a, g) for (a, _), g in
+                                    zip(got_want, single))
+        r.update(two_runs_bitwise_equal=repeats[name],
+                 bitwise_equal_to_one_launch_a_half=same_as_singles[name])
+        say(f"[7 train a] splat bwd {name} per step: pair {r['ms']:.4f} ms "
+            f"cold, {r['ms_back_to_back']:.4f} back to back; one launch "
+            f"a half {r['singles_ms']:.4f} cold, "
+            f"{r['singles_ms_back_to_back']:.4f} back to back (medians of "
+            f"{SPLAT_BWD_CALLS}; the pair's cold mean {r['ms_mean']:.4f}, "
+            f"range {r['ms_cold_range'][0]:.4f}-{r['ms_cold_range'][1]:.4f}); "
+            f"bound {r['bound_ms']:.4f} ms (pair "
+            f"{r['ms'] / r['bound_ms']:.2f}x cold, "
+            f"{r['ms_back_to_back'] / r['bound_ms']:.2f}x back to back); "
+            f"bitwise equal to one launch a half: {same_as_singles[name]}")
     say(f"[7 train a] splat bwd: two runs bitwise equal on every input: "
-        f"{all(repeats.values())}")
-    del ctx, ft0, ft1, flo_noise, flo_bad, flo_bad_dropped, timer
+        f"{all(repeats.values())}; the pair bitwise equal to one launch a "
+        f"half: {same_as_singles}")
+    del ctx, ft0, ft1, noise, bad, bad_dropped, timer
     torch.cuda.empty_cache()
 
     # ---- (b) one full-width train step, card against CPU, 64x64, at
@@ -987,7 +1135,185 @@ def train_phase(torch, dev, data_root: Path, tmp: Path,
                             if k not in ("counts", "bf16_counts")}, **checked},
                 bfloat16={**{k: v for k, v in fixed16.items()
                              if k not in ("counts",)}, **checked16},
-                cli_wall=[first["wall"], second["wall"], test_wall, wall16])
+                cli_wall=[first["wall"], second["wall"], test_wall, wall16],
+                ddp_inputs=dict(weights=weights0, batch=batch, t=t_np,
+                                argv=argv))
+
+
+def free_port() -> int:
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def ddp_phase(torch, dev, tmp: Path, inputs: dict) -> dict:
+    """Phase 8: data parallelism on the card, NCCL at world size 1 (the
+    box has one card). DDP_STEPS train steps at phase 7(c)'s setting in
+    five runs from the same weights: plain, plain again, twice through
+    ``data_parallel`` (DistributedDataParallel leaving out the parameters
+    no step reads) and once through DistributedDataParallel with
+    ``find_unused_parameters`` instead. In the first data_parallel run
+    each gradient DDP leaves must be bitwise the local gradient of the
+    same backward, every step (captured by a hook as it is accumulated):
+    NCCL's all-reduce of one rank is a copy and DDP divides by 1.0, so
+    the DDP step is the plain step on the same gradients. The other runs,
+    without those hooks, are timed (the median step after the first).
+    Whole runs are compared bitwise where two plain runs are (the
+    atomic splat and the gather backward's float flush make them differ
+    from run to run otherwise: the spreads are reported). Then ``cli
+    --phase train`` for one epoch on phase 7(d)'s tree through a process
+    group of one. Returns what the results line reports."""
+    import torch.distributed as dist
+    from torch.nn.parallel import DistributedDataParallel
+
+    from demfi_torch.checkpoint import load_training_checkpoint
+    from demfi_torch.config import config_rb
+    from demfi_torch.main import cli
+    from demfi_torch.models import make_model
+    from demfi_torch.ops import kernels
+    from demfi_torch.parallel import (data_parallel, destroy_distributed,
+                                      init_distributed)
+    from demfi_torch.train import create_train_state, make_train_step
+
+    cfg = config_rb(5, 3, seed=SEED)
+    frames = torch.from_numpy(inputs["batch"]).to(dev)
+    t_dev = torch.from_numpy(inputs["t"]).to(dev)
+    joined = init_distributed(f"127.0.0.1:{free_port()}", 1, 0, "cuda")
+    check(joined == (0, 1) and dist.get_backend() == "nccl",
+          f"phase 8: joined {joined}, backend {dist.get_backend()}")
+
+    def run(mode: str, capture: bool = False) -> dict:
+        """mode: "plain", "ddp" (data_parallel) or "find_unused"."""
+        model = make_model(cfg, device=dev)
+        model.load_state_dict(inputs["weights"], strict=True)
+        net = {"plain": lambda: model,
+               "ddp": lambda: data_parallel(model, cfg.N_trn),
+               "find_unused": lambda: DistributedDataParallel(
+                   model, device_ids=[torch.cuda.current_device()],
+                   find_unused_parameters=True)
+               }[mode]()
+        local = {}
+        hooks = [p.register_post_accumulate_grad_hook(
+            lambda p, k=k: local.__setitem__(k, p.grad.clone()))
+            for k, p in model.named_parameters()] if capture else []
+        state = create_train_state(cfg, net)
+        step = make_train_step(cfg)
+        kernels.reset_launch_counts()
+        losses, secs, exact = [], [], []
+        with torch.enable_grad():
+            for _ in range(DDP_STEPS):
+                local.clear()
+                t0 = time.perf_counter()
+                losses.append(float(step(state, frames, t_dev)["total_loss"]))
+                torch.cuda.synchronize()
+                secs.append(time.perf_counter() - t0)
+                got = {k: p.grad for k, p in model.named_parameters()
+                       if p.grad is not None}
+                exact.append(capture and set(got) == set(local) and all(
+                    torch.equal(g, local[k]) for k, g in got.items()))
+        for h in hooks:
+            h.remove()
+        out = dict(losses=losses, secs=secs, exact=exact,
+                   step_s=float(np.median(secs[1:])),
+                   counts=kernels.launch_counts(),
+                   params={k: v.detach().clone()
+                           for k, v in model.state_dict().items()},
+                   no_grad=sorted(k for k, p in model.named_parameters()
+                                  if p.grad is None))
+        del net, model, state
+        torch.cuda.empty_cache()
+        return out
+
+    def gap(a, b):
+        return max(float((a["params"][k] - b["params"][k]).abs().max())
+                   for k in a["params"])
+    try:
+        plain, again = run("plain"), run("plain")
+        ddp, timed = run("ddp", capture=True), run("ddp")
+        unused = run("find_unused")
+    finally:
+        destroy_distributed()
+    want = {k: v * DDP_STEPS for k, v in TRAIN_LAUNCHES.items()}
+    check(all(ddp["exact"]), f"phase 8: DDP changed a gradient at world size "
+                             f"1 (bitwise per step: {ddp['exact']})")
+    check(all(r["counts"] == want for r in (ddp, timed, unused)),
+          f"phase 8: launches {ddp['counts']}, {timed['counts']}, "
+          f"{unused['counts']} != {want}")
+    check(ddp["no_grad"] == plain["no_grad"], f"phase 8: parameters without a "
+          f"gradient {ddp['no_grad']} (plain: {plain['no_grad']})")
+    deterministic = again["losses"] == plain["losses"] and gap(plain, again) == 0
+    if deterministic:
+        check(all(r["losses"] == plain["losses"] and gap(plain, r) == 0
+                  for r in (ddp, timed)),
+              "phase 8: two plain runs agree bitwise, a DDP run does not")
+    check(all(np.isfinite(ddp["losses"])), f"phase 8: losses {ddp['losses']}")
+    say(f"[8 ddp] NCCL, world size 1, {DDP_STEPS} steps of DeMFI-Net_rb(5,3) at "
+        f"{TRAIN_B}x{TRAIN_PS}x{TRAIN_PS}, float32, phase 7(c)'s batch and "
+        f"weights: every gradient DDP left bitwise the local gradient of the "
+        f"same backward in every step: {all(ddp['exact'])}; parameters without "
+        f"a gradient (left out of DDP's reduction) {ddp['no_grad']}; losses "
+        f"plain {plain['losses']}, plain again {again['losses']}, DDP "
+        f"{ddp['losses']}, {timed['losses']}; largest parameter gap after the "
+        f"steps: plain to plain {gap(plain, again):.3g}, plain to DDP "
+        f"{gap(plain, ddp):.3g}, {gap(plain, timed):.3g} (two plain runs "
+        f"bitwise equal: {deterministic}); seconds per step plain "
+        f"{['%.4f' % v for v in plain['secs'] + again['secs']]}, DDP "
+        f"{['%.4f' % v for v in timed['secs']]}, DDP with "
+        f"find_unused_parameters {['%.4f' % v for v in unused['secs']]} "
+        f"(and {['%.4f' % v for v in ddp['secs']]} with a hook cloning each "
+        f"gradient); medians after the first step: plain "
+        f"{plain['step_s']:.4f}, {again['step_s']:.4f}, DDP "
+        f"{timed['step_s']:.4f}, find_unused_parameters "
+        f"{unused['step_s']:.4f}; launches per step "
+        f"{ {k: v / DDP_STEPS for k, v in ddp['counts'].items()} }")
+
+    # the CLI's train phase through a process group of one
+    moved = {"--checkpoint_dir": tmp / "ddp_ckpt", "--text_dir": tmp / "ddp_txt",
+             "--log_dir": tmp / "ddp_log", "--test_img_dir": tmp / "ddp_img"}
+    argv = [str(moved[inputs["argv"][i - 1]])
+            if i and inputs["argv"][i - 1] in moved else a
+            for i, a in enumerate(inputs["argv"])]
+    out = io.StringIO()
+    t0 = time.perf_counter()
+    with torch.enable_grad(), contextlib.redirect_stdout(out):
+        res = cli(argv + ["--epochs", "1", "--coordinator_address",
+                          f"127.0.0.1:{free_port()}", "--num_processes", "1",
+                          "--process_id", "0"])
+    wall = time.perf_counter() - t0
+    check(not dist.is_initialized(), "phase 8: the CLI left its process group")
+    check("DistributedDataParallel" in out.getvalue(),
+          "phase 8: the CLI did not train through DistributedDataParallel")
+    check(res["start_epoch"] == 0 and len(res["epoch_losses"]) == 1
+          and bool(np.isfinite(res["epoch_losses"]).all())
+          and bool(np.isfinite(res["final"][:5]).all()),
+          f"phase 8: cli --phase train: {res}")
+    sd, _, meta = load_training_checkpoint(str(
+        tmp / "ddp_ckpt" / "DeMFInet_exp1" / "DeMFInet_exp1_latest.pt"))
+    make_model(cfg, device="cpu").load_state_dict(sd, strict=True)
+    say(f"[8 ddp] cli --phase train --coordinator_address 127.0.0.1:<port> "
+        f"--num_processes 1 --process_id 0, one epoch on phase 7(d)'s tree in "
+        f"{wall:.2f} s: loss {res['epoch_losses'][0]:.5f}, step seconds "
+        f"{['%.4f' % v for v in res['step_seconds']]}, final intp PSNR "
+        f"{res['final'][1]:.4f}; its checkpoint (epoch {meta['last_epoch']}) "
+        f"loads strictly into a plain model")
+    return dict(world_size=1, backend="nccl", steps=DDP_STEPS,
+                gradients_bitwise_local=ddp["exact"],
+                runs_deterministic=deterministic,
+                losses=dict(plain=plain["losses"], plain_again=again["losses"],
+                            ddp=ddp["losses"], ddp_timed=timed["losses"]),
+                param_gap=dict(plain_again=gap(plain, again),
+                               ddp=gap(plain, ddp),
+                               ddp_timed=gap(plain, timed)),
+                step_seconds=dict(plain=plain["secs"] + again["secs"],
+                                  ddp=timed["secs"],
+                                  find_unused_parameters=unused["secs"],
+                                  ddp_with_hooks=ddp["secs"]),
+                median_step_seconds=dict(
+                    plain=[plain["step_s"], again["step_s"]],
+                    ddp=timed["step_s"],
+                    find_unused_parameters=unused["step_s"]),
+                no_grad=ddp["no_grad"], cli_wall=wall,
+                cli_epoch_loss=res["epoch_losses"][0])
 
 
 def gather_bwd_timings(torch, dev, kernels, warp) -> list:
@@ -1046,11 +1372,56 @@ def gather_bwd_timings(torch, dev, kernels, warp) -> list:
     return out
 
 
+def splat_bwd_timings(torch, dev, kernels, warp) -> dict:
+    """Phase 3d (``--kernels-of`` only): the splat's backward on CFR's two
+    halves at the train step's shapes (batch 2, C = 2, 256x256) on smooth
+    synthetic flows of up to ~20 px, so that two checkouts compare in one
+    run: per step the median of SPLAT_BWD_CALLS cold calls and of as many
+    back to back, of one launch a half (every checkout) and of one launch
+    on both halves (``fwarp_splat_bwd_pair``, where the checkout has it),
+    each against the plain vjp. Returns the times."""
+    b, c, h, w = TRAIN_B, 2, TRAIN_PS, TRAIN_PS
+    yy, xx = np.meshgrid(np.arange(h), np.arange(w), indexing="ij")
+    field = np.stack([3 * np.sin(xx / 40.0 + yy / 30.0),
+                      2 * np.cos(yy / 35.0)])[None]
+    halves = []
+    for seed in (1, 2):
+        rng = np.random.RandomState(SEED + seed)
+        img = field * rng.uniform(3, 8, (b, 1, 1, 1))
+        halves.append([torch.from_numpy(np.ascontiguousarray(
+            x, np.float32)).to(dev) for x in (
+            img, 0.4 * img, rng.randn(b, c, h, w), rng.randn(b, 1, h, w))])
+    want = [t for half in halves for t in warp.fwarp_splat_plain_vjp(*half)]
+    fns = {"one launch a half": lambda: [kernels.fwarp_splat_bwd(*half)
+                                         for half in halves]}
+    if hasattr(kernels, "fwarp_splat_bwd_pair"):
+        fns["one launch on both halves"] = (
+            lambda: kernels.fwarp_splat_bwd_pair(*halves[0], *halves[1]))
+    timer = DeviceTimer(torch)
+    out = {}
+    for name, fn in fns.items():
+        got = [t for half in fn() for t in half]
+        err = max(float((g - p).abs().max()) / max(1.0, float(p.abs().max()))
+                  for g, p in zip(got, want))
+        check(err <= BWD_RTOL, f"3d splat bwd {name}: {err} from the plain vjp")
+        out[name] = dict(
+            ms=float(np.median(timer.times(fn, SPLAT_BWD_CALLS))),
+            ms_back_to_back=float(np.median(timer.back_to_back(
+                fn, SPLAT_BWD_CALLS))), max_rel_err=err)
+        say(f"[3d splat bwd] C={c} 2x{b} {h}x{w} smooth, {name}: per step "
+            f"{out[name]['ms']:.4f} ms cold, {out[name]['ms_back_to_back']:.4f}"
+            f" back to back (medians of {SPLAT_BWD_CALLS}) | max err "
+            f"{err:.3g} of the largest value (tol {BWD_RTOL:.0e})")
+    del timer
+    torch.cuda.empty_cache()
+    return out
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--profile", action="store_true")
     ap.add_argument("--kernels-of", metavar="DIR", default="",
-                    help="run phases 1-3c on the checkout of the port at "
+                    help="run phases 1-3d on the checkout of the port at "
                          "DIR and stop ('.' for this one; an earlier "
                          "commit's, to time both in one run: what that "
                          "checkout's kernels lack, the pair entry, the "
@@ -1520,6 +1891,8 @@ def main() -> int:
                         "splat_tile_spread": tile_spread,
                         "gather_bwd_sites": gather_bwd_timings(
                             torch, dev, kernels, warp),
+                        "splat_bwd": splat_bwd_timings(
+                            torch, dev, kernels, warp),
                         "tree": args.kernels_of}))
         return 0
 
@@ -1906,6 +2279,9 @@ def main() -> int:
         # (the evaluation tree of phase 6 serves its validation and test)
         train = train_phase(torch, dev, tmp / "data", tmp, args.profile)
 
+        # ------------------------------------------- 8. data parallelism
+        ddp = ddp_phase(torch, dev, tmp, train.pop("ddp_inputs"))
+
     # ---------------------------------------------------------- results
     def entry(name, source, replaces, launches, on_path, weight, extra):
         """One kernel of the kernels line: its times on its path summed
@@ -2011,7 +2387,8 @@ def main() -> int:
         "eval_windows_per_s": n_windows / ev["wall"],
         "eval_engine_stream_span_share": ev["stream_span"] / ev["wall"],
         "train": {k: v for k, v in train.items()
-                  if k not in ("bwd_rows", "counts", "bf16_counts")}}))
+                  if k not in ("bwd_rows", "counts", "bf16_counts")},
+        "ddp": ddp}))
     say(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

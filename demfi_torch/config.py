@@ -2,7 +2,7 @@
 fields of DeMFI.
 
 The port's own copy of the fields its training, inference and
-evaluation paths read (the multi-device fields wait for the DDP slice).
+evaluation paths read.
 What the JAX package reads from the environment is an explicit field
 here (``device``, ``fwarp_shift_d``).
 """
@@ -84,6 +84,12 @@ class DeMFIConfig:
     # number.
     experimental_tof: bool = False
     seed: int = 0
+
+    # ---- processes: data parallelism over torch.distributed, one process
+    # per card (demfi_torch.parallel); unset for one process ----
+    coordinator_address: Optional[str] = None
+    num_processes: Optional[int] = None
+    process_id: Optional[int] = None
 
     # ---- device ----
     # "cuda" (the default: a run without a card fails) or "cpu".

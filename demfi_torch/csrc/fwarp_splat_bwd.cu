@@ -26,9 +26,26 @@
 //
 // Bound: device-memory bytes (read img, flo, grad_out and grad_norm once,
 // write grad_img and grad_flo once; a few flops per byte).
-// Design, simple on purpose: one thread per source pixel, a 32 x 8 block
-// of them; it gathers its four corners' grad_out for each channel and
-// sums in a fixed order. No atomics: the same bits every run.
+//
+// One kernel, one or two halves. A train step calls this function twice,
+// both from CFR (demfi_torch/ops/warp.py: cfr_flow_t_align), on two flow
+// fields of equal shapes at C = 2: about 11 MB together at batch 2,
+// 256x256, 3.3 us of the card's memory rate. What a call pays for there
+// is not bytes but the launch, a partial wave of blocks and each thread's
+// chain of dependent loads (flo, then grad_norm, img and grad_out at its
+// corners). So the entry takes two halves of equal shapes (CFR's two
+// warps, one launch; blockIdx.z walks the batch elements of both) or one
+// (any other caller). One thread per source pixel, a 32 x 8 block of
+// them; each thread issues every load of its corners before the first
+// use: the flow, then the grad_norm corners, then for each tile of
+// channels (all of C at the compile-time C = 2; one channel at a time
+// for any other C) the img values and grad_out corners: at C = 2, 16
+// independent loads a pixel. An empty kernel on the two halves' grid
+// takes about 0.005 ms on an H100 (chip_smoke.py phase 7(a)), more than
+// the function's 0.0034 ms of bytes: the launch, not the work, sets the
+// floor. The sum runs in a fixed order per pixel (corners 0..3, channels
+// in order), with no atomics: the same bits every run, and one half
+// gives the same bits alone as in a pair (tests/test_torch_cuda.py).
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -37,32 +54,46 @@ namespace {
 constexpr int kTX = 32;
 constexpr int kTY = 8;
 
+template <int kC>
 __global__ void __launch_bounds__(kTX * kTY)
-fwarp_splat_bwd_kernel(const float* __restrict__ img,
-                       const float* __restrict__ flo,
-                       const float* __restrict__ gout,
-                       const float* __restrict__ gnorm,
+fwarp_splat_bwd_kernel(const float* __restrict__ img_a,
+                       const float* __restrict__ img_b,
+                       const float* __restrict__ flo_a,
+                       const float* __restrict__ flo_b,
+                       const float* __restrict__ gout_a,
+                       const float* __restrict__ gout_b,
+                       const float* __restrict__ gnorm_a,
+                       const float* __restrict__ gnorm_b,
                        float* __restrict__ grad_img,
-                       float* __restrict__ grad_flo, int C, int H, int W) {
+                       float* __restrict__ grad_flo, int B, int C_rt, int H,
+                       int W) {
+  const int C = kC > 0 ? kC : C_rt;
+  constexpr int kNC = kC > 0 ? kC : 1;   // channels whose loads go together
   const int x = blockIdx.x * kTX + threadIdx.x;
   const int y = blockIdx.y * kTY + threadIdx.y;
   if (x >= W || y >= H) return;
-  const int b = blockIdx.z;
+  const int z = blockIdx.z;              // batch element of the outputs
+  const bool second = z >= B;
+  const int b = second ? z - B : z;
   const int hw = H * W;
   const int p = y * W + x;
-  const float* fl = flo + (int64_t)b * 2 * hw;
-  const float dc = __ldg(fl + p);        // along W
-  const float dr = __ldg(fl + hw + p);   // along H
+  const float* src = (second ? img_b : img_a) + (int64_t)b * C * hw + p;
+  const float* fl = (second ? flo_b : flo_a) + (int64_t)b * 2 * hw + p;
+  const float* g = (second ? gout_b : gout_a) + (int64_t)b * C * hw;
+  const float* gn = (second ? gnorm_b : gnorm_a) + (int64_t)b * hw;
+  float* gi = grad_img + (int64_t)z * C * hw + p;
+  float* gf = grad_flo + (int64_t)z * 2 * hw + p;
+
+  const float dc = __ldg(fl);        // along W
+  const float dr = __ldg(fl + hw);   // along H
   const float c1 = floorf(dc);
   const float r1 = floorf(dr);
   const float fc = __fsub_rn(dc, c1);
   const float fr = __fsub_rn(dr, r1);
   const float ftr = __fadd_rn((float)y, r1);
   const float ftc = __fadd_rn((float)x, c1);
-  const float* src = img + (int64_t)b * C * hw + p;
-  float* gi = grad_img + (int64_t)b * C * hw + p;
-  float* gf = grad_flo + (int64_t)b * 2 * hw + p;
-  // false for NaN, infinities and huge flows, tested before any conversion
+  // false for NaN, infinities and huge flows, tested before any
+  // conversion (fwarp_splat.cu's test)
   if (!(ftr >= -1.0f && ftr < (float)H && ftc >= -1.0f && ftc < (float)W)) {
     for (int c = 0; c < C; ++c) gi[(int64_t)c * hw] = 0.0f;
     gf[0] = 0.0f;
@@ -82,21 +113,32 @@ fwarp_splat_bwd_kernel(const float* __restrict__ img,
     const float d = __fsub_rn(fc, (float)ddc);
     wgt[k] = expf(-__fadd_rn(__fmul_rn(a, a), __fmul_rn(d, d)));
     t[k] = in[k] ? r * W + c : 0;
-    s[k] = in[k] ? __ldg(gnorm + (int64_t)b * hw + t[k]) : 0.0f;
   }
-  const float* g = gout + (int64_t)b * C * hw;
-  for (int c = 0; c < C; ++c) {
-    const float v = __ldg(src + (int64_t)c * hw);
-    const float* gc = g + (int64_t)c * hw;
-    float acc = 0.0f;
+  // grad_norm at every corner: s starts from it
 #pragma unroll
-    for (int k = 0; k < 4; ++k) {
-      if (!in[k]) continue;
-      const float go = __ldg(gc + t[k]);
-      acc += wgt[k] * go;
-      s[k] += v * go;
+  for (int k = 0; k < 4; ++k) s[k] = in[k] ? __ldg(gn + t[k]) : 0.0f;
+  // channels, kNC at a time: every img value and grad_out corner of the
+  // tile loaded, then summed
+  for (int c0 = 0; c0 < C; c0 += kNC) {
+    float v[kNC], go[kNC][4];
+#pragma unroll
+    for (int cc = 0; cc < kNC; ++cc) {
+      const float* gc = g + (int64_t)(c0 + cc) * hw;
+      v[cc] = __ldg(src + (int64_t)(c0 + cc) * hw);
+#pragma unroll
+      for (int k = 0; k < 4; ++k) go[cc][k] = in[k] ? __ldg(gc + t[k]) : 0.0f;
     }
-    gi[(int64_t)c * hw] = acc;
+#pragma unroll
+    for (int cc = 0; cc < kNC; ++cc) {
+      float acc = 0.0f;
+#pragma unroll
+      for (int k = 0; k < 4; ++k) {
+        if (!in[k]) continue;
+        acc += wgt[k] * go[cc][k];
+        s[k] += v[cc] * go[cc][k];
+      }
+      gi[(int64_t)(c0 + cc) * hw] = acc;
+    }
   }
   float gr = 0.0f, gcol = 0.0f;
 #pragma unroll
@@ -112,22 +154,33 @@ fwarp_splat_bwd_kernel(const float* __restrict__ img,
 
 }  // namespace
 
-// img [B,C,H,W], flo [B,2,H,W], gout [B,C,H,W], gnorm [B,1,H,W]; grad_img
-// [B,C,H,W] and grad_flo [B,2,H,W] written in full. All float32,
-// contiguous, on one device; H*W below 2^31. Launches on `stream` and
-// returns cudaGetLastError().
-extern "C" int demfi_fwarp_splat_bwd_f32(const float* img, const float* flo,
-                                         const float* gout,
-                                         const float* gnorm, float* grad_img,
-                                         float* grad_flo, int B, int C, int H,
-                                         int W, void* stream) {
+// halves = 1 or 2 of equal shapes, a and b (b unread for one half):
+// img_* [B,C,H,W], flo_* [B,2,H,W], gout_* [B,C,H,W], gnorm_* [B,1,H,W];
+// grad_img [halves*B,C,H,W] and grad_flo [halves*B,2,H,W] written in full,
+// half a's batch elements first. All float32, contiguous, on one device;
+// H*W below 2^31. Launches on `stream` and returns cudaGetLastError().
+extern "C" int demfi_fwarp_splat_bwd_f32(
+    const float* img_a, const float* img_b, const float* flo_a,
+    const float* flo_b, const float* gout_a, const float* gout_b,
+    const float* gnorm_a, const float* gnorm_b, float* grad_img,
+    float* grad_flo, int halves, int B, int C, int H, int W, void* stream) {
   if (B <= 0 || H <= 0 || W <= 0) return (int)cudaSuccess;
-  if (C < 0 || (int64_t)H * W > INT32_MAX) return (int)cudaErrorInvalidValue;
+  if (C < 0 || (halves != 1 && halves != 2) || (int64_t)H * W > INT32_MAX)
+    return (int)cudaErrorInvalidValue;
   const int64_t gy = (H + kTY - 1) / kTY;
-  if (B > 65535 || gy > 65535) return (int)cudaErrorInvalidConfiguration;
+  if ((int64_t)halves * B > 65535 || gy > 65535)
+    return (int)cudaErrorInvalidConfiguration;
   const dim3 grid((unsigned)((W + kTX - 1) / kTX), (unsigned)gy,
-                  (unsigned)B);
-  fwarp_splat_bwd_kernel<<<grid, dim3(kTX, kTY), 0, (cudaStream_t)stream>>>(
-      img, flo, gout, gnorm, grad_img, grad_flo, C, H, W);
+                  (unsigned)(halves * B));
+  const dim3 block(kTX, kTY);
+  cudaStream_t st = (cudaStream_t)stream;
+  if (C == 2)
+    fwarp_splat_bwd_kernel<2><<<grid, block, 0, st>>>(
+        img_a, img_b, flo_a, flo_b, gout_a, gout_b, gnorm_a, gnorm_b,
+        grad_img, grad_flo, B, C, H, W);
+  else
+    fwarp_splat_bwd_kernel<0><<<grid, block, 0, st>>>(
+        img_a, img_b, flo_a, flo_b, gout_a, gout_b, gnorm_a, gnorm_b,
+        grad_img, grad_flo, B, C, H, W);
   return (int)cudaGetLastError();
 }

@@ -32,17 +32,27 @@ class TrainLoader:
 
     def __init__(self, dataset: AdobeTrainDataset, batch_size: int,
                  num_threads: int = 8, seed: int = 0, drop_last: bool = True,
-                 prefetch: int = 4, process_count: int = 1):
+                 prefetch: int = 4, process_id: int = 0,
+                 process_count: int = 1):
+        """``batch_size`` is the global batch. With process_count > 1
+        every process draws the same seeded shuffle and the per-sample
+        seeds for the whole global order, then loads only its
+        batch_size / process_count slice of each global batch: the
+        processes' slices, put together, are the one-process stream."""
         if process_count > 1:
-            raise NotImplementedError(
-                "TrainLoader: loading a share of each batch per process "
-                "waits for the multi-GPU slice; run one process")
+            if batch_size % process_count:
+                raise ValueError(f"global batch {batch_size} not divisible "
+                                 f"by {process_count} processes")
+            if not drop_last:
+                raise ValueError("multi-process loading requires drop_last")
         self.ds = dataset
         self.batch_size = batch_size
         self.num_threads = max(1, num_threads)
         self.seed = seed
         self.drop_last = drop_last
         self.prefetch = prefetch
+        self.process_id = process_id
+        self.process_count = process_count
 
     def __len__(self) -> int:
         n = len(self.ds)
@@ -51,16 +61,23 @@ class TrainLoader:
 
     def epoch(self, epoch_idx: int
               ) -> Iterator[Tuple[np.ndarray, np.ndarray]]:
-        """Yields (frames [B,9,ps,ps,3], t [B,1]) float32."""
+        """Yields (frames [B,9,ps,ps,3], t [B,1]) float32, B this
+        process's share of the global batch."""
         rng = random.Random(self.seed * 1_000_003 + epoch_idx)
         order = list(range(len(self.ds)))
         rng.shuffle(order)
         if self.drop_last:
             order = order[:len(self) * self.batch_size]
         seeds = [rng.getrandbits(48) for _ in range(len(order))]
+        local_bs = self.batch_size // self.process_count
+        if self.process_count > 1:
+            mine = [k * self.batch_size + self.process_id * local_bs + j
+                    for k in range(len(self)) for j in range(local_bs)]
+            order = [order[i] for i in mine]
+            seeds = [seeds[i] for i in mine]
 
         samples: "queue.Queue" = queue.Queue(
-            maxsize=self.prefetch * self.batch_size)
+            maxsize=self.prefetch * local_bs)
         stop = threading.Event()
         pos = iter(range(len(order)))
         lock = threading.Lock()
@@ -95,13 +112,13 @@ class TrainLoader:
                 if isinstance(s, Exception):
                     raise s
                 buf[i] = s
-                bs = min(self.batch_size, total - emitted)
+                bs = min(local_bs, total - emitted)
                 while bs and all(emitted + j in buf for j in range(bs)):
                     batch = [buf.pop(emitted + j) for j in range(bs)]
                     emitted += bs
                     yield (np.stack([x.frames for x in batch]),
                            np.stack([x.t_value for x in batch]))
-                    bs = min(self.batch_size, total - emitted)
+                    bs = min(local_bs, total - emitted)
         finally:
             stop.set()
             for t in threads:

@@ -17,6 +17,7 @@ import time
 from typing import Optional, Tuple
 
 import numpy as np
+import torch.distributed as dist
 
 from demfi_torch.config import DeMFIConfig
 from demfi_torch.data.datasets import (CustomDataset, EvalDataset, _imread,
@@ -24,6 +25,7 @@ from demfi_torch.data.datasets import (CustomDataset, EvalDataset, _imread,
 from demfi_torch.data.imageio import imwrite
 from demfi_torch.infer.engine import InferenceEngine
 from demfi_torch.metrics import eval_pair_hwc, to_png_uint8
+from demfi_torch.parallel import allgather_sums
 from demfi_torch.utils.meters import AverageMeter, ProgressPrinter
 
 
@@ -171,14 +173,18 @@ def evaluate(cfg: DeMFIConfig, engine: InferenceEngine, multiple: int,
     and seconds are left in ``last_eval_stats``.
 
     ``shard=(process_id, process_count)`` assigns whole scenes
-    round-robin to processes. The cross-process gather of the meters
-    belongs to the multi-GPU slice: ``process_count > 1`` raises."""
+    round-robin to processes, which must have joined one process group
+    of that many (``demfi_torch.parallel.init_distributed``): the five
+    headline meters and the per-slot ones are then summed across the
+    processes as float64 (sum, count), so every process prints and
+    returns what one process would."""
     if multiple not in (2, 8):
         raise ValueError("phase test supports multiple in {2, 8}")
-    if shard[1] > 1:
-        raise NotImplementedError(
-            "evaluate with shard=(pid, pcount > 1) needs the cross-process "
-            "gather of the meters, which comes with the DDP slice")
+    if shard[1] > 1 and not (dist.is_initialized()
+                             and dist.get_world_size() == shard[1]):
+        raise RuntimeError(f"evaluate with shard={shard} needs a process "
+                           f"group of {shard[1]} processes "
+                           f"(demfi_torch.parallel.init_distributed)")
     ds = EvalDataset(cfg.test_data_path, multiple, cfg.t_step_size,
                      center_patch=center_patch, test_type=test_type)
     m1 = multiple - 1
@@ -375,6 +381,23 @@ def evaluate(cfg: DeMFIConfig, engine: InferenceEngine, multiple: int,
             writer.add_scalar("deblur_testPSNR", deblur_psnr["final"].val, tb)
 
     finalize_scene()
+
+    if shard[1] > 1:
+        meters = [losses, intp_psnr["final"], intp_ssim["final"],
+                  deblur_psnr["final"], deblur_ssim["final"]]
+        meters += [total[k].psnr[i]
+                   for k in ("prime", "final") for i in range(1, 9)]
+        meters += [total[k].ssim[i]
+                   for k in ("prime", "final") for i in range(1, 9)]
+        summed = allgather_sums([m.sum for m in meters]
+                                + [m.count for m in meters])
+        for m, s_, c_ in zip(meters, summed[:len(meters)],
+                             summed[len(meters):]):
+            m.sum, m.count = float(s_), int(c_)
+            m.avg = float(s_ / max(c_, 1))
+        print(f"[eval shard {shard[0]}/{shard[1]}] aggregated over "
+              f"{int(summed[len(meters) + 1])} interp samples across "
+              f"processes")
 
     n_print = n_windows
     print("-" * 40 + f" x{multiple} MFI results " + "-" * 40)

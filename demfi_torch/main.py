@@ -14,8 +14,15 @@ float32). The
 checkpoints are ``<checkpoint_dir>/<net_type>_exp<N>/<net_type>_exp<N>_``
 ``{latest,best_PSNR,epc<N>}.pt`` in the reference's ``.pt`` layout;
 training writes them and resumes from them (``--auto_resume``,
-``--fine_tuning [--fine_tuning_epoch_point N]``). One process: more
-(``--num_processes``) wait for the multi-GPU slice.
+``--fine_tuning [--fine_tuning_epoch_point N]``).
+
+Data parallelism: ``--coordinator_address HOST:PORT --num_processes P
+--process_id p`` in each of P processes joins them in one
+``torch.distributed`` group (NCCL on cards, one per process; gloo with
+``--device cpu``; ``demfi_torch.parallel``). Training then wraps the
+model in ``DistributedDataParallel``, each process loading its share of
+every global batch; ``--phase test`` and ``test_custom`` give each
+process whole scenes, round-robin, and sum the meters across them.
 """
 from __future__ import annotations
 
@@ -110,8 +117,8 @@ def parse_args(argv=None) -> DeMFIConfig:
     p.add_argument("--eval_window_batch", type=int, default=d.eval_window_batch)
     p.add_argument("--t_chunk", type=int, default=d.t_chunk)
     p.add_argument("--coordinator_address", type=str, default=None,
-                   help="multi-process training: waits for the multi-GPU "
-                        "slice")
+                   help="HOST:PORT of rank 0's TCP store: one process per "
+                        "card (or CPU worker) joined by torch.distributed")
     p.add_argument("--num_processes", type=int, default=None)
     p.add_argument("--process_id", type=int, default=None)
     p.add_argument("--auto_resume", action="store_true",
@@ -138,11 +145,6 @@ def parse_args(argv=None) -> DeMFIConfig:
                 "architecture is 3-channel; only --img_ch 3 is valid")
     if a.fwarp_shift_d < 0:
         p.error("--fwarp_shift_d must be >= 0")
-    if ((a.num_processes or 1) > 1 or (a.process_id or 0) > 0
-            or a.coordinator_address is not None):
-        p.error("more than one process (--coordinator_address, "
-                "--num_processes, --process_id) waits for the multi-GPU "
-                "slice of the port")
 
     fields = {f.name for f in dataclasses.fields(DeMFIConfig)}
     kwargs = {k: v for k, v in vars(a).items() if k in fields}
@@ -197,6 +199,23 @@ def _save_debug(cfg: DeMFIConfig, model, it: int, frames, ts) -> None:
         imageio.imwrite(os.path.join(path, name + ".png"), to_png_uint8(img))
 
 
+def _join(cfg: DeMFIConfig) -> Tuple[DeMFIConfig, int, int]:
+    """Join the process group the flags name (none without them). Returns
+    the config, with the rank's device where a group was joined, the
+    process id and the process count."""
+    import torch.distributed as dist
+
+    from demfi_torch.parallel import init_distributed, rank_device
+
+    pid, pcount = init_distributed(cfg.coordinator_address,
+                                   cfg.num_processes, cfg.process_id,
+                                   cfg.device)
+    if dist.is_initialized():
+        cfg = dataclasses.replace(cfg, device=str(rank_device(cfg.device,
+                                                              pid)))
+    return cfg, pid, pcount
+
+
 def run_train(cfg: DeMFIConfig) -> dict:
     """The reference's training phase on ``cfg.device``: epochs of the
     train loader through the train step, the per-epoch meters, debug
@@ -204,26 +223,53 @@ def run_train(cfg: DeMFIConfig) -> dict:
     0 and every ``epoch_freq_display`` epochs, the latest / best_PSNR /
     per-epoch checkpoints, and a final full-resolution evaluation at
     x``multiple_MFI`` with N_tst. Returns the epochs run, their mean
-    losses, the best PSNR and the final evaluation's results."""
+    losses, the best PSNR and the final evaluation's results.
+
+    In a process group (the coordinator flags) the model is wrapped in
+    ``DistributedDataParallel`` and each process steps on its share of
+    every global batch. Process 0 decides whether to resume and hands its
+    restored state to the others; it alone writes checkpoints, the text
+    log, TensorBoard and debug sheets, and runs the validation passes;
+    the final evaluation is shared out by scenes."""
+    from demfi_torch.parallel import destroy_distributed
+
+    cfg, pid, pcount = _join(cfg)
+    try:
+        return _train(cfg, pid, pcount)
+    finally:
+        destroy_distributed()
+
+
+def _train(cfg: DeMFIConfig, pid: int, pcount: int) -> dict:
+    import torch.distributed as dist
+
     from demfi_torch.checkpoint import AsyncExperimentManager
     from demfi_torch.data import (AdobeTrainDataset, TrainLoader,
                                   device_prefetch)
     from demfi_torch.infer import InferenceEngine
     from demfi_torch.infer.driver import evaluate
     from demfi_torch.models import make_model
+    from demfi_torch.parallel import broadcast_object, data_parallel
     from demfi_torch.train import (create_train_state, make_train_step,
                                    set_epoch)
     from demfi_torch.utils.meters import (AverageMeter, ProgressPrinter,
                                           model_summary)
     from demfi_torch.utils.profiling import StepTimer
 
-    em = AsyncExperimentManager(cfg)
+    is_main = pid == 0
+    em = AsyncExperimentManager(cfg) if is_main else None
     model = make_model(cfg, device=cfg.device)
     device = next(model.parameters()).device
-    state = create_train_state(cfg, model)
-    print(model_summary(model))
+    net = model
+    if dist.is_initialized():
+        net = data_parallel(model, cfg.N_trn)
+        print(f"data parallel: process {pid} of {pcount}, "
+              f"DistributedDataParallel on {device} ({dist.get_backend()})")
+    state = create_train_state(cfg, net)
+    if is_main:
+        print(model_summary(model))
     step = make_train_step(cfg)
-    writer = _writer(cfg)
+    writer = _writer(cfg) if is_main else None
 
     def engine(num_update):
         return InferenceEngine(model, num_update, t_chunk=cfg.t_chunk or None,
@@ -233,11 +279,16 @@ def run_train(cfg: DeMFIConfig) -> dict:
     start_epoch = 0
     best_psnr = 0.0
     results = (0.0,) * 5 + ("",)
-    if cfg.fine_tuning or (cfg.auto_resume and em.has("latest")):
-        if cfg.fine_tuning and cfg.fine_tuning_epoch_point:
-            sd, opt, meta = em.load_epoch(cfg.fine_tuning_epoch_point)
-        else:
-            sd, opt, meta = em.load_latest()
+    # process 0 decides and restores; the others take its state
+    resume = broadcast_object(is_main and bool(
+        cfg.fine_tuning or (cfg.auto_resume and em.has("latest"))))
+    if resume:
+        loaded = None
+        if is_main:
+            loaded = (em.load_epoch(cfg.fine_tuning_epoch_point)
+                      if cfg.fine_tuning and cfg.fine_tuning_epoch_point
+                      else em.load_latest())
+        sd, opt, meta = broadcast_object(loaded)
         model.load_state_dict(sd, strict=True)
         if opt is not None:
             state.optimizer.load_state_dict(opt)
@@ -251,10 +302,12 @@ def run_train(cfg: DeMFIConfig) -> dict:
 
     ds = AdobeTrainDataset(cfg.train_data_path, cfg.t_sampling_num,
                            cfg.patch_size, cfg.need_patch)
-    loader = TrainLoader(ds, cfg.batch_size, cfg.num_thrds, cfg.seed)
+    loader = TrainLoader(ds, cfg.batch_size, cfg.num_thrds, cfg.seed,
+                         process_id=pid, process_count=pcount)
     timer = StepTimer(device)
-    em.write_info("Epoch\tintp_testPSNR\tdeblur_testPSNR\tavg_testPSNR"
-                  "\tbest_PSNR\n")
+    if is_main:
+        em.write_info("Epoch\tintp_testPSNR\tdeblur_testPSNR\tavg_testPSNR"
+                      "\tbest_PSNR\n")
     print("[*] Training starts")
     epoch_losses = []
     for epoch in range(start_epoch, cfg.epochs):
@@ -283,11 +336,12 @@ def run_train(cfg: DeMFIConfig) -> dict:
                     writer.add_scalar("trainLoss", losses.val, tb)
                     writer.add_scalar("trainLoss_rec_D1", d1m.val, tb)
                     writer.add_scalar("trainLoss_rec_D2", d2m.val, tb)
-            if it in debug_its:
+            if is_main and it in debug_its:
                 _save_debug(cfg, model, it, frames, ts)
         epoch_losses.append(losses.avg)
 
-        if (epoch + 1) % cfg.epoch_freq_display == 0 or epoch == 0:
+        if is_main and ((epoch + 1) % cfg.epoch_freq_display == 0
+                        or epoch == 0):
             results = evaluate(cfg, engine(cfg.N_trn), multiple=2,
                                epoch=epoch, center_patch=cfg.patch_size,
                                test_type="valid_5_per_scene",
@@ -299,17 +353,20 @@ def run_train(cfg: DeMFIConfig) -> dict:
         score = (intp_p + dblr_p) / 2
         best_flag = score > best_psnr
         best_psnr = max(score, best_psnr)
-        meta = dict(last_epoch=epoch, best_PSNR=best_psnr,
-                    intp_testPSNR=intp_p, intp_testSSIM=intp_s,
-                    deblur_testPSNR=dblr_p, deblur_testSSIM=dblr_s,
-                    testLoss=test_loss, trainLoss=losses.avg,
-                    learningRate=lr, batch_size=cfg.batch_size)
-        optimizer_state = state.optimizer.state_dict()
-        em.save_latest(model.state_dict(), optimizer_state, meta, best_flag)
-        if (epoch + 1) % cfg.epoch_freq_save == 0:
-            em.save_epoch(epoch, model.state_dict(), optimizer_state, meta)
-        em.write_info(f"{epoch}\t{intp_p:.4}\t{dblr_p:.4}\t{score:.4}"
-                      f"\t{best_psnr:.4}\n")
+        if is_main:
+            meta = dict(last_epoch=epoch, best_PSNR=best_psnr,
+                        intp_testPSNR=intp_p, intp_testSSIM=intp_s,
+                        deblur_testPSNR=dblr_p, deblur_testSSIM=dblr_s,
+                        testLoss=test_loss, trainLoss=losses.avg,
+                        learningRate=lr, batch_size=cfg.batch_size)
+            optimizer_state = state.optimizer.state_dict()
+            em.save_latest(model.state_dict(), optimizer_state, meta,
+                           best_flag)
+            if (epoch + 1) % cfg.epoch_freq_save == 0:
+                em.save_epoch(epoch, model.state_dict(), optimizer_state,
+                              meta)
+            em.write_info(f"{epoch}\t{intp_p:.4}\t{dblr_p:.4}\t{score:.4}"
+                          f"\t{best_psnr:.4}\n")
 
     print("-" * 20, "Training has been ended.", "-" * 20)
     print("best_PSNR of model:", best_psnr)
@@ -318,8 +375,10 @@ def run_train(cfg: DeMFIConfig) -> dict:
                      post_fix=f"_final_x{cfg.multiple_MFI}_full_resolution"
                               f"_Ntst{cfg.N_tst}",
                      test_patch=cfg.test_patch, writer=writer,
-                     window_batch=cfg.eval_window_batch)
-    em.close()
+                     window_batch=cfg.eval_window_batch,
+                     shard=(pid, pcount))
+    if is_main:
+        em.close()
     if writer:
         writer.close()
     return dict(start_epoch=start_epoch, epoch_losses=epoch_losses,
@@ -353,26 +412,41 @@ def _eval_engine(cfg: DeMFIConfig):
 
 def run_test(cfg: DeMFIConfig
              ) -> Tuple[float, float, float, float, float, str]:
+    """``--phase test``; in a process group each process evaluates whole
+    scenes, round-robin, and the meters are summed across processes."""
     from demfi_torch.infer.driver import evaluate
+    from demfi_torch.parallel import destroy_distributed
 
-    engine = _eval_engine(cfg)
-    print(f"Evaluating on {cfg.test_data_path} with multiple = "
-          f"{cfg.multiple_MFI} with full resolution")
-    return evaluate(cfg, engine, multiple=cfg.multiple_MFI,
-                    epoch=cfg.epochs - 1, test_patch=cfg.test_patch,
-                    post_fix=f"_final_x{cfg.multiple_MFI}_full_resolution"
-                             f"_Ntst{cfg.N_tst}",
-                    window_batch=cfg.eval_window_batch)
+    cfg, pid, pcount = _join(cfg)
+    try:
+        engine = _eval_engine(cfg)
+        print(f"Evaluating on {cfg.test_data_path} with multiple = "
+              f"{cfg.multiple_MFI} with full resolution")
+        return evaluate(cfg, engine, multiple=cfg.multiple_MFI,
+                        epoch=cfg.epochs - 1, test_patch=cfg.test_patch,
+                        post_fix=f"_final_x{cfg.multiple_MFI}_full_"
+                                 f"resolution_Ntst{cfg.N_tst}",
+                        window_batch=cfg.eval_window_batch,
+                        shard=(pid, pcount))
+    finally:
+        destroy_distributed()
 
 
 def run_test_custom(cfg: DeMFIConfig) -> None:
+    """``--phase test_custom``; in a process group each process
+    interpolates whole scenes, round-robin."""
     from demfi_torch.infer.driver import evaluate_custom
+    from demfi_torch.parallel import destroy_distributed
 
-    engine = _eval_engine(cfg)
-    print(f"Evaluating on {cfg.custom_path} with multiple = "
-          f"{cfg.multiple_MFI}")
-    evaluate_custom(cfg, engine, multiple=cfg.multiple_MFI,
-                    test_patch=cfg.test_patch)
+    cfg, pid, pcount = _join(cfg)
+    try:
+        engine = _eval_engine(cfg)
+        print(f"Evaluating on {cfg.custom_path} with multiple = "
+              f"{cfg.multiple_MFI}")
+        evaluate_custom(cfg, engine, multiple=cfg.multiple_MFI,
+                        test_patch=cfg.test_patch, shard=(pid, pcount))
+    finally:
+        destroy_distributed()
 
 
 def cli(argv=None):

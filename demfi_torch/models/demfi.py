@@ -469,6 +469,7 @@ class DeMFINet(nn.Module):
             raise ValueError(f"compute_dtype must be float32 or bfloat16, "
                              f"got {compute_dtype}")
         self.nf = nf
+        self.fgac_rr = fgac_rr
         # window of CFR's deterministic forward warp (0: atomic splat)
         self.fwarp_shift_d = fwarp_shift_d
         self.use_stage2 = use_stage2
@@ -495,6 +496,27 @@ class DeMFINet(nn.Module):
         for mod in self.modules():
             if isinstance(mod, (_Conv, _Conv3dT1, FGAC, SepConvGRU)):
                 mod.compute_dtype = compute_dtype
+
+    # the modules built for use_stage2, read only when num_update > 0
+    STAGE2 = ("Ch_Reducer", "Booster_Module", "Dec_first_2", "Decoder_res_2",
+              "Dec_last1_2", "Dec_last2_2")
+
+    def unread_parameters(self, num_update: int) -> List[str]:
+        """Names of the parameters that a forward with ``num_update``
+        boosting iterations never reads, so that their gradients stay
+        None: every FGAC's ``conv_source_k`` at fgac_rr = 0 (the
+        point-wise correlation never reads the source key, though the
+        reference's layout keeps its weights) and, at num_update = 0, the
+        second stage. DistributedDataParallel leaves them out of its
+        gradient reduction (``demfi_torch.parallel.data_parallel``)."""
+        names = []
+        for name, _ in self.named_parameters():
+            module = name.split(".")[0]
+            fgac = name.split(".")[-2] == "conv_source_k"
+            if ((fgac and self.fgac_rr == 0)
+                    or (num_update == 0 and module in self.STAGE2)):
+                names.append(name)
+        return names
 
     # ---------------------------------------------------- t-independent
     def extract(self, frames: torch.Tensor) -> StageIContext:

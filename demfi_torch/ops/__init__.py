@@ -4,6 +4,7 @@ from demfi_torch.ops.warp import (
     bwarp_pair,
     bilinear_sample_abs,
     fwarp,
+    fwarp_pair,
     cfr_flow_t_align,
     fgac_correlate,
 )
@@ -15,6 +16,7 @@ __all__ = [
     "bwarp_pair",
     "bilinear_sample_abs",
     "fwarp",
+    "fwarp_pair",
     "cfr_flow_t_align",
     "fgac_correlate",
 ]

@@ -70,7 +70,10 @@ Two more carry their gradients. The JAX package's fast paths are
   ``fwarp_splat_bwd`` (csrc/fwarp_splat_bwd.cu): the vjp of the forward
       warp (of ``_fwarp_xla``, :549), whichever kernel served the
       forward: a gather over each source pixel's four corners, no
-      atomics, the same bits every run.
+      atomics, the same bits every run. :func:`fwarp_pair` (CFR's two
+      forward warps) takes its backward as one launch on both halves
+      (:func:`fwarp_splat_bwd_pair`): the kernel's grid covers one half
+      or two.
 
 Autograd: on the card, a call whose inputs require grad (with grad
 enabled) goes through a ``torch.autograd.Function`` that saves only its
@@ -207,8 +210,9 @@ def _bind(name: str, lib: ctypes.CDLL) -> ctypes.CDLL:
         fns[1].argtypes = [vp] * 10 + [i] * 7 + [vp]
     elif name == "fwarp_splat_bwd":
         fns = [lib.demfi_fwarp_splat_bwd_f32]
-        # img, flo, gout, gnorm, grad_img, grad_flo, B, C, H, W, stream
-        fns[0].argtypes = [vp] * 6 + [i] * 4 + [vp]
+        # img_a, img_b, flo_a, flo_b, gout_a, gout_b, gnorm_a, gnorm_b,
+        # grad_img, grad_flo, halves, B, C, H, W, stream
+        fns[0].argtypes = [vp] * 10 + [i] * 5 + [vp]
     else:
         fns = [lib.demfi_fwarp_shift_f32]
         # img, flo, out, norm, flag, served, row_stats, B, C, H, W, D, stream
@@ -624,8 +628,8 @@ class _Fwarp(torch.autograd.Function):
     @staticmethod
     def backward(ctx, grad_out, grad_norm):
         img, flo = ctx.saved_tensors
-        grad_img, grad_flo = _launch_splat_bwd(
-            img, flo, grad_out.contiguous(), grad_norm.contiguous())
+        (grad_img, grad_flo), = _launch_splat_bwd(
+            (img, flo, grad_out.contiguous(), grad_norm.contiguous()))
         return (grad_img, grad_flo, None) + (None,) * ctx.n_args
 
 
@@ -633,6 +637,59 @@ def _fwarp_call(img, flo, forward, *args):
     if _needs_grad(img, flo):
         return _Fwarp.apply(img, flo, forward, *args)
     return forward(img, flo, *args)
+
+
+class _FwarpPair(torch.autograd.Function):
+    """Two forward warps of equal shapes under autograd (CFR's): the
+    forward is ``forward`` on each half (two launches of whichever kernel
+    serves it), the backward one launch of the backward kernel on
+    both."""
+
+    @staticmethod
+    def forward(ctx, img_a, flo_a, img_b, flo_b, forward, *args):
+        ctx.save_for_backward(img_a, flo_a, img_b, flo_b)
+        ctx.n_args = len(args)
+        return forward(img_a, flo_a, *args) + forward(img_b, flo_b, *args)
+
+    @staticmethod
+    def backward(ctx, go_a, gn_a, go_b, gn_b):
+        img_a, flo_a, img_b, flo_b = ctx.saved_tensors
+        (gi_a, gf_a), (gi_b, gf_b) = _launch_splat_bwd(
+            (img_a, flo_a, go_a.contiguous(), gn_a.contiguous()),
+            (img_b, flo_b, go_b.contiguous(), gn_b.contiguous()))
+        return (gi_a, gf_a, gi_b, gf_b, None) + (None,) * ctx.n_args
+
+
+def _fwarp_one(img, flo, d):
+    """One forward warp as :func:`demfi_torch.ops.warp.fwarp` chooses it:
+    the splat for d <= 0, else the guarded pair of kernels."""
+    return fwarp_splat(img, flo) if d <= 0 else fwarp_guarded(img, flo, d)
+
+
+def fwarp_pair(img_a: torch.Tensor, flo_a: torch.Tensor,
+               img_b: torch.Tensor, flo_b: torch.Tensor, d: int = 0):
+    """Two forward warps of equal shapes, each as :func:`_fwarp_one`
+    serves it (d as ``shift_d`` of :func:`demfi_torch.ops.warp.fwarp`).
+    Returns ((out_a, norm_a), (out_b, norm_b)). On the card, under
+    autograd, both backwards are one launch of the backward kernel
+    (:func:`fwarp_splat_bwd_pair`); on the CPU the two warps are the two
+    single entries, plain versions under autograd."""
+    if d > 0:
+        _check_window("fwarp_pair", d)
+    tensors = (img_a, flo_a, img_b, flo_b)
+    if all(t.device.type == "cpu" for t in tensors):
+        return _fwarp_one(img_a, flo_a, d), _fwarp_one(img_b, flo_b, d)
+    _check_fwarp("fwarp_pair", img_a, flo_a)
+    _check_fwarp("fwarp_pair", img_b, flo_b)
+    if img_a.shape != img_b.shape:
+        raise ValueError(f"fwarp_pair: the two halves differ in shape: "
+                         f"{tuple(img_a.shape)}, {tuple(img_b.shape)}")
+    forward, args = (_splat_fwd, (None,)) if d <= 0 else (_guarded_fwd, (d,))
+    if _needs_grad(*tensors):
+        out_a, norm_a, out_b, norm_b = _FwarpPair.apply(
+            img_a, flo_a, img_b, flo_b, forward, *args)
+        return (out_a, norm_a), (out_b, norm_b)
+    return forward(img_a, flo_a, *args), forward(img_b, flo_b, *args)
 
 
 def fwarp_splat(img: torch.Tensor, flo: torch.Tensor,
@@ -711,7 +768,7 @@ def fwarp_guarded(img: torch.Tensor, flo: torch.Tensor, d: int
     return _fwarp_call(img, flo, _guarded_fwd, d)
 
 
-def _launch_splat_bwd(img, flo, grad_out, grad_norm):
+def _check_splat_bwd(img, flo, grad_out, grad_norm) -> None:
     _check_fwarp("fwarp_splat_bwd", img, flo)
     _check("fwarp_splat_bwd", img, grad_out, grad_norm)
     b, c, h, w = img.shape
@@ -721,15 +778,35 @@ def _launch_splat_bwd(img, flo, grad_out, grad_norm):
                          f"for img {tuple(img.shape)}")
     if h * w >= 2 ** 31:
         raise ValueError("fwarp_splat_bwd: a plane of 2^31 elements or more")
-    grad_img = torch.empty_like(img)
-    grad_flo = torch.empty_like(flo)
+
+
+def _launch_splat_bwd(*halves):
+    """One launch of the backward kernel on one or two halves (img, flo,
+    grad_out, grad_norm) of equal shapes. Returns [(grad_img, grad_flo)]
+    per half, views of one allocation each for the images' and the
+    flows' gradients."""
+    for half in halves:
+        _check_splat_bwd(*half)
+    (img_a, flo_a, gout_a, gnorm_a), (img_b, flo_b, gout_b, gnorm_b) = (
+        halves[0], halves[-1])
+    if img_a.shape != img_b.shape or img_a.device != img_b.device:
+        raise ValueError("fwarp_splat_bwd_pair: the two halves differ in "
+                         "shape or device")
+    n = len(halves)
+    b, c, h, w = img_a.shape
+    grad_img = torch.empty((n * b, c, h, w), dtype=torch.float32,
+                           device=img_a.device)
+    grad_flo = torch.empty((n * b, 2, h, w), dtype=torch.float32,
+                           device=img_a.device)
     rc = build()["fwarp_splat_bwd"].demfi_fwarp_splat_bwd_f32(
-        img.data_ptr(), flo.data_ptr(), grad_out.data_ptr(),
-        grad_norm.data_ptr(), grad_img.data_ptr(), grad_flo.data_ptr(),
-        b, c, h, w, _raw_stream(img.device))
+        img_a.data_ptr(), img_b.data_ptr(), flo_a.data_ptr(),
+        flo_b.data_ptr(), gout_a.data_ptr(), gout_b.data_ptr(),
+        gnorm_a.data_ptr(), gnorm_b.data_ptr(), grad_img.data_ptr(),
+        grad_flo.data_ptr(), n, b, c, h, w, _raw_stream(img_a.device))
     _raise_on("fwarp_splat_bwd", rc)
     fwarp_splat_bwd.launches += 1
-    return grad_img, grad_flo
+    return [(grad_img[k * b:(k + 1) * b], grad_flo[k * b:(k + 1) * b])
+            for k in range(n)]
 
 
 def fwarp_splat_bwd(img: torch.Tensor, flo: torch.Tensor,
@@ -743,10 +820,23 @@ def fwarp_splat_bwd(img: torch.Tensor, flo: torch.Tensor,
     source pixel the forward kernel drops gets zero gradients)."""
     if all(t.device.type == "cpu" for t in (img, flo, grad_out, grad_norm)):
         return _warp.fwarp_splat_plain_vjp(img, flo, grad_out, grad_norm)
-    return _launch_splat_bwd(img, flo, grad_out, grad_norm)
+    return _launch_splat_bwd((img, flo, grad_out, grad_norm))[0]
 
 
 fwarp_splat_bwd.launches = 0
+
+
+def fwarp_splat_bwd_pair(img_a, flo_a, gout_a, gnorm_a,
+                         img_b, flo_b, gout_b, gnorm_b):
+    """:func:`fwarp_splat_bwd` of two halves of equal shapes in one launch
+    of its kernel (counted in ``fwarp_splat_bwd.launches``). Returns
+    ((grad_img_a, grad_flo_a), (grad_img_b, grad_flo_b)); CPU tensors take
+    the plain vjp of each half."""
+    tensors = (img_a, flo_a, gout_a, gnorm_a, img_b, flo_b, gout_b, gnorm_b)
+    if all(t.device.type == "cpu" for t in tensors):
+        return (fwarp_splat_bwd(img_a, flo_a, gout_a, gnorm_a),
+                fwarp_splat_bwd(img_b, flo_b, gout_b, gnorm_b))
+    return tuple(_launch_splat_bwd(tensors[:4], tensors[4:]))
 
 
 WRAPPERS = (bilinear_gather, fwarp_splat, fwarp_shift, bilinear_gather_bwd,

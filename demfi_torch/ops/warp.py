@@ -11,6 +11,8 @@
     pixel onto the 4 integer corners around ``p + flo(p)``, by the atomic
     splat kernel or, for ``shift_d > 0`` and motion inside the window, by
     the deterministic stencil kernel;
+  - :func:`fwarp_pair`  two forward warps of equal shapes, whose
+    backward on the card is one launch;
   - :func:`cfr_flow_t_align`  Complementary Flow Reversal;
   - :func:`fgac_correlate`  FGAC aggregation, point-wise at rr = 0 and the
     reference's window form (with its quirks) at rr > 0.
@@ -284,18 +286,34 @@ def fwarp(img: torch.Tensor, flo: torch.Tensor, shift_d: int = 0
     return kernels.fwarp_guarded(img, flo, shift_d)
 
 
+def fwarp_pair(img_a: torch.Tensor, flo_a: torch.Tensor,
+               img_b: torch.Tensor, flo_b: torch.Tensor, shift_d: int = 0):
+    """:func:`fwarp` of two halves of equal shapes: ((warped_a, norm_a),
+    (warped_b, norm_b)), each what :func:`fwarp` returns. On the card the
+    forward kernels run once per half and, under autograd, the two
+    backwards are one launch (``kernels.fwarp_pair``)."""
+    if img_a.shape != img_b.shape or flo_a.shape != flo_b.shape:
+        raise ValueError(f"fwarp_pair: unequal halves {tuple(img_a.shape)}, "
+                         f"{tuple(img_b.shape)}, {tuple(flo_a.shape)}, "
+                         f"{tuple(flo_b.shape)}")
+    return kernels.fwarp_pair(img_a.contiguous(), flo_a.contiguous(),
+                              img_b.contiguous(), flo_b.contiguous(),
+                              shift_d)
+
+
 def cfr_flow_t_align(flow_01: torch.Tensor, flow_10: torch.Tensor,
                      t: torch.Tensor, shift_d: int = 0
                      ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Complementary Flow Reversal (from XVFI). flow_01/flow_10
     [B,2,H,W]; t broadcastable to [B,1,1,1]; shift_d as in
-    :func:`fwarp`. Returns (flow_t0, flow_t1).
+    :func:`fwarp`. Returns (flow_t0, flow_t1). Its two forward warps go
+    through :func:`fwarp_pair`.
 
     The mask reads the detached norm (> 0); where it is 0 the flows pass
     through unnormalised (denominator norm + (1 - mask))."""
     t = t.reshape(-1, 1, 1, 1).to(flow_01.dtype)
-    w01, n0 = fwarp(flow_01, t * flow_01, shift_d)
-    w10, n1 = fwarp(flow_10, (1.0 - t) * flow_10, shift_d)
+    (w01, n0), (w10, n1) = fwarp_pair(flow_01, t * flow_01,
+                                      flow_10, (1.0 - t) * flow_10, shift_d)
 
     flow_t0 = -(1.0 - t) * t * w01 + t * t * w10
     flow_t1 = (1.0 - t) * (1.0 - t) * w01 - t * (1.0 - t) * w10

@@ -49,8 +49,9 @@ def planted_fault(kind: str):
     inputs detached. The forward and the launches are unchanged."""
     if kind not in PLANTED_FAULTS:
         raise ValueError(f"planted_fault: {kind!r} not in {PLANTED_FAULTS}")
-    saved = (kernels._Gather, kernels._GatherPair, kernels._Fwarp)
-    gather, pair, fwarp = saved
+    saved = (kernels._Gather, kernels._GatherPair, kernels._Fwarp,
+             kernels._FwarpPair)
+    gather, pair, fwarp, fwarp_pair = saved
     every = kind == "every_warp"
 
     class Gather:                   # FGAC's absolute samples
@@ -69,18 +70,27 @@ def planted_fault(kind: str):
                 args = tuple(a.detach() for a in args[:4]) + args[4:]
             return pair.apply(*args)
 
-    class Fwarp:                    # the CFR splats
+    class Fwarp:                    # a single forward warp
         @staticmethod
         def apply(img, flo, *rest):
             if every or kind == "cfr_splats":
                 img, flo = img.detach(), flo.detach()
             return fwarp.apply(img, flo, *rest)
 
-    kernels._Gather, kernels._GatherPair, kernels._Fwarp = Gather, Pair, Fwarp
+    class FwarpPair:                # the CFR splats
+        @staticmethod
+        def apply(*args):
+            if every or kind == "cfr_splats":
+                args = tuple(a.detach() for a in args[:4]) + args[4:]
+            return fwarp_pair.apply(*args)
+
+    (kernels._Gather, kernels._GatherPair, kernels._Fwarp,
+     kernels._FwarpPair) = Gather, Pair, Fwarp, FwarpPair
     try:
         yield
     finally:
-        kernels._Gather, kernels._GatherPair, kernels._Fwarp = saved
+        (kernels._Gather, kernels._GatherPair, kernels._Fwarp,
+         kernels._FwarpPair) = saved
 
 
 def rel_frobenius(got: torch.Tensor, want: torch.Tensor) -> float:

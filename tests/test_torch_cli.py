@@ -177,11 +177,12 @@ def test_cli_refuses(tree, capsys):
     root, sd = tree
     save_checkpoint(checkpoint_path(DeMFIConfig(
         checkpoint_dir=str(root / "refuse" / "ckpt")), "latest"), sd)
-    # training runs (tests/test_torch_train.py); more than one process
-    # waits for the multi-GPU slice
+    # training runs (tests/test_torch_train.py), on one process or more
+    # (tests/test_torch_parallel.py); the JAX package's mesh flags have
+    # no counterpart (the spatial axis is not ported)
     with pytest.raises(SystemExit):
-        cli(["--phase", "train", "--device", "cpu", "--num_processes", "2"])
-    assert "multi-GPU slice" in capsys.readouterr().err
+        cli(["--phase", "test", "--device", "cpu", "--mesh_spatial", "2"])
+    assert "unrecognized arguments: --mesh_spatial" in capsys.readouterr().err
     if not torch.cuda.is_available():
         # no card and no --device cpu: the run fails, it does not carry on
         with pytest.raises(RuntimeError, match="CUDA"):

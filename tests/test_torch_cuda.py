@@ -494,6 +494,14 @@ def test_wrappers_refuse_what_the_kernels_do_not_take(cuda_device):
         kernels.fwarp_guarded(flo, flo.bfloat16(), 4)
     with pytest.raises(TypeError):
         kernels.fwarp_splat_bwd(flo.bfloat16(), flo, flo, flo[:, :1])
+    with pytest.raises(TypeError):
+        kernels.fwarp_splat_bwd_pair(flo, flo, flo, flo[:, :1],
+                                     flo.bfloat16(), flo, flo, flo[:, :1])
+    with pytest.raises(ValueError):     # halves of unequal shapes
+        kernels.fwarp_splat_bwd_pair(flo, flo, flo, flo[:, :1], img, flo,
+                                     img, flo[:, :1])
+    with pytest.raises(ValueError):
+        kernels.fwarp_pair(flo, flo, img, flo)
     with pytest.raises(ValueError):
         kernels.fwarp_splat(img.transpose(2, 3), flo)
     with pytest.raises(ValueError, match="stats"):
@@ -872,9 +880,13 @@ def test_warps_under_autograd_on_the_card(cuda_device):
     for flows in (small, small * 3):   # the stencil serves, then the splat
         check(lambda x, f: warp.fwarp(x, f, 8), (img, flows), 0, 1)
     t = np.full((b, 1, 1, 1), 0.375)
+    # CFR's two forward warps: one backward launch on both halves
     check(lambda f0, f1: warp.cfr_flow_t_align(
         f0, f1, torch.as_tensor(t, dtype=torch.float32, device=f0.device)),
-        (small, rng.uniform(-5.5, 5.5, (b, 2, h, w))), 0, 2)
+        (small, rng.uniform(-5.5, 5.5, (b, 2, h, w))), 0, 1)
+    for d in (0, 8):
+        check(lambda x, f, y, g: sum(warp.fwarp_pair(x, f, y, g, d), ()),
+              (img, small, rng.randn(b, c, h, w), small * 2), 0, 1)
 
 
 def _splat_bwd_inputs(rng, kind, b, c, h, w, dev):
@@ -939,12 +951,81 @@ def test_splat_bwd_kernel_zeroes_non_finite_flows(cuda_device):
     _within(gf, pf)
 
 
+def _splat_bwd_pair_inputs(rng, kind, b, c, h, w, dev):
+    """Two halves of the splat's backward: (img, flo, gout, gnorm) each."""
+    return [_splat_bwd_inputs(rng, kind, b, c, h, w, dev) for _ in range(2)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", ["smooth", "noise", "integer"])
+@pytest.mark.parametrize("c,h,w", [(2, 256, 256), (2, 37, 75), (2, 13, 129),
+                                   (1, 37, 75), (3, 21, 200), (64, 9, 33)])
+def test_splat_bwd_pair_matches_plain_vjp_and_repeats(cuda_device, c, h, w,
+                                                      kind):
+    """The kernel on two halves: one launch, within 1e-5 of the plain vjp
+    of each half, the same bits from two runs, and the same bits as a
+    launch on each half alone (each pixel's corners and channels are
+    summed in one fixed order, whatever the grid). Ragged sizes: W not a
+    multiple of the 32 source columns a block covers, H not a multiple of
+    8; C = 2 is the compile-time case, the others the runtime channel
+    loop."""
+    rng = np.random.RandomState(c * 11 + h + len(kind))
+    a, b = _splat_bwd_pair_inputs(rng, kind, 2, c, h, w, cuda_device)
+    n = kernels.fwarp_splat_bwd.launches
+    got = kernels.fwarp_splat_bwd_pair(*a, *b)
+    again = kernels.fwarp_splat_bwd_pair(*a, *b)
+    torch.cuda.synchronize()
+    assert kernels.fwarp_splat_bwd.launches == n + 2
+    for half, (gi, gf), (gi2, gf2) in zip((a, b), got, again):
+        assert torch.equal(gi, gi2) and torch.equal(gf, gf2)
+        pi, pf = warp.fwarp_splat_plain_vjp(*half)
+        _within(gi, pi)
+        _within(gf, pf)
+        si, sf = kernels.fwarp_splat_bwd(*half)
+        assert torch.equal(gi, si) and torch.equal(gf, sf)
+
+
+@pytest.mark.cuda
+def test_splat_bwd_pair_zeroes_non_finite_flows(cuda_device):
+    """In either half, a source pixel whose flow is NaN, infinite or
+    +-1e9 gets zero, finite gradients; elsewhere the plain vjp's on the
+    flows with those entries set to 1e9."""
+    rng = np.random.RandomState(13)
+    b, c, h, w = 2, 2, 37, 75
+    halves, want = [], []
+    for half in range(2):
+        img, _, gout, gnorm = _splat_bwd_inputs(rng, "smooth", b, c, h, w,
+                                                cuda_device)
+        flo = _splat_flows(rng, "smooth", b, h, w)
+        bad = [np.nan, np.inf, -np.inf, 1e9, -1e9]
+        flo[half, 0, 3 + half, 5:10] = bad
+        flo[1 - half, 1, 17, 40:45] = bad
+        with np.errstate(invalid="ignore"):
+            hit = (~(np.isfinite(flo) & (np.abs(flo) < 1e8))).any(
+                1, keepdims=True)
+        dropped = np.where(hit, np.float32(1e9), flo).astype(np.float32)
+        halves.append((img, torch.from_numpy(flo).to(cuda_device), gout,
+                       gnorm))
+        want.append((warp.fwarp_splat_plain_vjp(
+            img, torch.from_numpy(dropped).to(cuda_device), gout, gnorm),
+            torch.from_numpy(~hit).to(cuda_device)))
+    got = kernels.fwarp_splat_bwd_pair(*halves[0], *halves[1])
+    torch.cuda.synchronize()
+    for (gi, gf), ((pi, pf), gone) in zip(got, want):
+        assert bool(torch.isfinite(gi).all()) and bool(torch.isfinite(gf).all())
+        assert float(gi[~gone.expand_as(gi)].abs().max()) == 0.0
+        assert float(gf[~gone.expand_as(gf)].abs().max()) == 0.0
+        _within(gi, pi)
+        _within(gf, pf)
+
+
 @pytest.mark.cuda
 def test_model_backward_card_matches_cpu(cuda_device):
     """loss.backward() through DeMFI-Net_rb(2,2) on the card: every warp
     passes its gradient on (the flow head's gradient is nonzero), with the
     backward kernels launched (2 FGAC + 2 feature pairs + 2 booster pairs
-    gathers, 2 CFR splats), and every parameter's gradient is the CPU's
+    gathers, CFR's two splats in one pair launch), and every parameter's
+    gradient is the CPU's
     (plain versions under autograd) within the bound of
     ``grad_check.gradient_bounds``: the larger of 1e-3 and twice the
     larger of the CPU's own change under 1e-6 nudges of the frames, drawn
@@ -991,7 +1072,7 @@ def test_model_backward_card_matches_cpu(cuda_device):
     gpu_model.zero_grad(set_to_none=True)
     rerun = grads(gpu_model, cuda_device, frames)
     assert after["bilinear_gather_bwd"] - before["bilinear_gather_bwd"] == 6
-    assert after["fwarp_splat_bwd"] - before["fwarp_splat_bwd"] == 2
+    assert after["fwarp_splat_bwd"] - before["fwarp_splat_bwd"] == 1
     want = grads(cpu_model(), "cpu", frames, flows)
 
     def cpu_step(delta):

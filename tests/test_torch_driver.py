@@ -156,7 +156,8 @@ def test_evaluate_refuses_what_it_does_not_do(setup):
     root, _, _, model = setup
     cfg = config_rb(1, 1, device="cpu", **dirs(root, "refuse"))
     engine = InferenceEngine(model, 1, device="cpu")
-    with pytest.raises(NotImplementedError, match="DDP"):
+    # sharded by scenes across processes only inside their process group
+    with pytest.raises(RuntimeError, match="process group"):
         evaluate(cfg, engine, multiple=8, shard=(0, 2))
     with pytest.raises(ValueError):
         evaluate(cfg, engine, multiple=4)

@@ -31,6 +31,8 @@ def test_no_jax_imports_in_port():
     files = _port_files()
     assert len(files) > 20
     assert ROOT / "demfi_torch" / "main.py" in files
+    assert {ROOT / "demfi_torch" / "parallel" / f
+            for f in ("__init__.py", "distributed.py")} <= set(files)
     bad = [(str(f.relative_to(ROOT)), m) for f in files
            for m in _imported_roots(f) if m in FORBIDDEN]
     assert not bad, bad

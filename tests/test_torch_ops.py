@@ -517,9 +517,9 @@ def test_autograd_functions_route_to_the_backward_kernels(monkeypatch):
         return tuple(t.detach() for t in warp.fwarp_splat_plain(
             img.detach(), flo.detach()))
 
-    def splat_bwd(img, flo, gout, gnorm):
+    def splat_bwd(*halves):
         kernels.fwarp_splat_bwd.launches += 1
-        return warp.fwarp_splat_plain_vjp(img, flo, gout, gnorm)
+        return [warp.fwarp_splat_plain_vjp(*half) for half in halves]
 
     monkeypatch.setattr(kernels, "_launch_gather", gather)
     monkeypatch.setattr(kernels, "_launch_gather_bwd", gather_bwd)
@@ -569,3 +569,86 @@ def test_autograd_functions_route_to_the_backward_kernels(monkeypatch):
     assert not kernels._needs_grad(a.detach(), fa.detach())
     with torch.no_grad():
         assert not kernels._needs_grad(a, fa)
+
+
+@pytest.mark.parametrize("shift_d,peak", [(0, 12.0), (8, 5.0), (8, 12.0)])
+def test_fwarp_pair_is_two_fwarps(shift_d, peak):
+    """fwarp_pair on the CPU: each half's value and gradient equal one
+    fwarp call on it, bit for bit, with the splat (shift_d 0), the
+    stencil inside its window (peak 5 px) and the guard's splat outside
+    it (peak 12 px); nothing is launched."""
+    rng = np.random.RandomState(int(peak) + shift_d)
+    b, c, h, w = 2, 2, 14, 23
+    arrays = [rng.uniform(-1, 1, (b, c, h, w)),
+              rng.uniform(-peak, peak, (b, 2, h, w)),
+              rng.uniform(-1, 1, (b, c, h, w)),
+              rng.uniform(-peak, peak, (b, 2, h, w))]
+    cots = [torch.from_numpy(rng.randn(*s).astype(np.float32))
+            for s in ((b, c, h, w), (b, 1, h, w)) * 2]
+
+    def run(fn):
+        xs = [torch.from_numpy(x.astype(np.float32)).requires_grad_()
+              for x in arrays]
+        outs = fn(*xs)
+        sum((o * g).sum() for o, g in zip(outs, cots)).backward()
+        return outs, [x.grad for x in xs]
+    before = kernels.launch_counts()
+    got = run(lambda ia, fa, ib, fb: sum(
+        warp.fwarp_pair(ia, fa, ib, fb, shift_d), ()))
+    want = run(lambda ia, fa, ib, fb: warp.fwarp(ia, fa, shift_d)
+               + warp.fwarp(ib, fb, shift_d))
+    assert kernels.launch_counts() == before
+    for g, w_ in zip(got[0] + tuple(got[1]), want[0] + tuple(want[1])):
+        torch.testing.assert_close(g, w_, atol=0, rtol=0)
+    with pytest.raises(ValueError):
+        warp.fwarp_pair(*[torch.from_numpy(x.astype(np.float32))
+                          for x in arrays[:3]],
+                        torch.zeros(b, 2, h, w + 1), shift_d)
+
+
+def test_fwarp_pair_function_routes_to_one_backward_launch(monkeypatch):
+    """The card's autograd wiring of fwarp_pair, run on the CPU with the
+    kernel launchers replaced by their plain versions: _FwarpPair gives
+    the plain versions' gradients of both halves, calls its forward once
+    per half and launches one backward for both; the pair backward's CPU
+    wrapper is the plain vjp of each half."""
+    def splat(img, flo, stats=None):
+        kernels.fwarp_splat.launches += 1
+        return tuple(t.detach() for t in warp.fwarp_splat_plain(
+            img.detach(), flo.detach()))
+
+    def splat_bwd(*halves):
+        assert len(halves) == 2
+        kernels.fwarp_splat_bwd.launches += 1
+        return [warp.fwarp_splat_plain_vjp(*half) for half in halves]
+
+    monkeypatch.setattr(kernels, "_launch_splat_bwd", splat_bwd)
+    rng = np.random.RandomState(12)
+    xs = [torch.from_numpy((rng.randn(*s) * k).astype(np.float32))
+          for s, k in (((2, 2, 9, 11), 1), ((2, 2, 9, 11), 3)) * 2]
+
+    def grads_of(fn):
+        leaves = [x.clone().requires_grad_() for x in xs]
+        outs = fn(*leaves)
+        sum((o * (k + 1)).square().sum() for k, o in enumerate(outs)
+            ).backward()
+        return [x.grad for x in leaves]
+    before = kernels.launch_counts()
+    got = grads_of(lambda *x: kernels._FwarpPair.apply(*x, splat, None))
+    after = kernels.launch_counts()
+    assert {k: after[k] - before[k] for k in after} == {
+        "bilinear_gather": 0, "fwarp_splat": 2, "fwarp_shift": 0,
+        "bilinear_gather_bwd": 0, "fwarp_splat_bwd": 1}
+    want = grads_of(lambda ia, fa, ib, fb: warp.fwarp_splat_plain(ia, fa)
+                    + warp.fwarp_splat_plain(ib, fb))
+    for g, w_ in zip(got, want):
+        torch.testing.assert_close(g, w_, atol=0, rtol=0)
+    cot = [torch.from_numpy(rng.randn(2, c, 9, 11).astype(np.float32))
+           for c in (2, 1, 2, 1)]
+    pair = kernels.fwarp_splat_bwd_pair(xs[0], xs[1], cot[0], cot[1],
+                                        xs[2], xs[3], cot[2], cot[3])
+    for (gi, gf), half in zip(pair, ((0, 1, 0, 1), (2, 3, 2, 3))):
+        wi, wf = warp.fwarp_splat_plain_vjp(xs[half[0]], xs[half[1]],
+                                            cot[half[2]], cot[half[3]])
+        torch.testing.assert_close(gi, wi, atol=0, rtol=0)
+        torch.testing.assert_close(gf, wf, atol=0, rtol=0)

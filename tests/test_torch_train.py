@@ -365,8 +365,8 @@ def test_train_loader_equals_jax(tree, batch_size, drop_last):
         for (f, t), (mf, mt) in zip(got, moved):
             assert torch.equal(mf, torch.from_numpy(f))
             assert torch.equal(mt, torch.from_numpy(t))
-    with pytest.raises(NotImplementedError):
-        TrainLoader(ds, 2, process_count=2)
+    with pytest.raises(ValueError, match="divisible"):
+        TrainLoader(ds, 3, process_count=2)
 
 
 def test_train_loader_under_thread_switches(tree):
