@@ -2,8 +2,9 @@
 """Smoke run of the PyTorch port (demfi_torch) on one NVIDIA GPU.
 
     python3 chip_smoke.py            # needs one CUDA card
-    python3 chip_smoke.py --profile  # adds a torch.profiler breakdown of
-                                     # one window and of one train step
+    python3 chip_smoke.py --profile [DIR]  # adds a torch.profiler
+                                     # breakdown of one window and of one
+                                     # train step; keeps the traces in DIR
     python3 chip_smoke.py --kernels-of DIR   # phases 1-3d only, on the
                                      # checkout of the port at DIR
 
@@ -135,9 +136,25 @@ Phases:
      step plain, through data_parallel and through DDP with
      find_unused_parameters;
      then ``cli --phase train --coordinator_address 127.0.0.1:<port>
-     --num_processes 1 --process_id 0`` for one epoch on 7(d)'s tree.
+     --num_processes 1 --process_id 0`` for one epoch on 7(d)'s tree;
+  9. the last modules: (a) remat, phase 7(c)'s step without it, with the
+     whole backbone and with each RDB recomputed, float32 and bfloat16:
+     seconds a step, forward / backward device ms, peak memory beside the
+     prediction and exactly 7(c)'s launches; then, with
+     cudnn.deterministic and the stencil forward warp, each mode's
+     gradients bitwise the plain step's where two plain steps agree; (b)
+     TrainLoader's samples/s on 1280x720 PNGs with the native augment
+     and with the numpy chain, beside the PNG decode seconds a sample and
+     the train step's rates; (c) ``demfi_torch.tools`` import_pt ->
+     export_pt -> import_pt on phase 6's checkpoint (byte-identical
+     msgpack, strict load, a window within 1e-3); (d)
+     ``demfi_torch.scripts.repro_table2`` at x8 on phase 6's tree and
+     checkpoint, PSNR within 1e-3 dB of phase 6's --phase test; (e)
+     ``demfi_torch.scripts.synthetic_sanity`` at its defaults must print
+     SANITY PASS.
 
-Prints a {"kernels": [...]} line, then as its last line
+Prints a "[9 summary]" line and a {"kernels": [...]} line, then as its
+last line
 {"ok": true, "device": {"platform": "gpu", ...}}. Any failed phase exits
 non-zero before either is printed; so does a run without a CUDA card.
 """
@@ -220,6 +237,19 @@ BF16_LOSS_RTOL = 1e-2          # a bfloat16 train step's loss, card vs CPU
 # calls, cold and back to back
 SPLAT_BWD_CALLS = 21
 DDP_STEPS = 4                  # phase 8: steps per run (timed after the first)
+# phase 9: remat (none, the whole backbone, each RDB) at 7(c)'s setting,
+# steps per mode and dtype (timed after the first)
+REMAT_STEPS = 4
+REMAT_MODES = (None, "backbone", "rdb")
+# predicted change of the float32 step's peak, GiB (low, high), against
+# no remat: the 12 RDBs' kept activations (~64 MiB a sample each) go,
+# the GFF concatenation and the up-sampling head with them for
+# "backbone"; written before the first run on the card
+REMAT_PREDICTED_GIB = {"backbone": (-1.8, -1.5), "rdb": (-1.3, -1.2)}
+LOADER_H, LOADER_W = 720, 1280   # Adobe240's frames
+LOADER_SCENES = 16               # scene directories, all links to one
+LOADER_EPOCHS = 2                # timed, after one warm-up epoch
+HARNESS_PSNR_TOL = 1e-3          # dB: the Table-2 harness against phase 6
 EMPTY_KERNEL_SRC = r"""
 #include <cuda_runtime.h>
 __global__ void demfi_empty_kernel() {}
@@ -478,15 +508,15 @@ def splat_targets(torch, flo) -> int:
     return int(reached.sum())
 
 
-def device_breakdown(torch, fn, label: str):
-    """A torch.profiler trace of fn(): wall time, the device's busy share
-    (the union of the intervals of device-side events, profiler
-    bookkeeping rows excluded), device seconds by kind and the top
-    kernels. Returns (the text, the busy share)."""
+def device_breakdown(torch, fn, label: str, logdir: str):
+    """A torch.profiler trace of fn() (``device_trace``, written under
+    ``logdir``): wall time, the device's busy share (the union of the
+    intervals of device-side events, profiler bookkeeping rows excluded),
+    device seconds by kind and the top kernels. Returns (the text, the
+    busy share)."""
     from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+    from demfi_torch.utils.profiling import device_trace
+    with device_trace(logdir) as prof:
         t0 = time.perf_counter()
         fn()
         torch.cuda.synchronize()
@@ -518,7 +548,7 @@ def device_breakdown(torch, fn, label: str):
 
 
 def train_phase(torch, dev, data_root: Path, tmp: Path,
-                profile: bool = False) -> dict:
+                profile: str = "") -> dict:
     """Phase 7: the training path at full width. (a) each backward kernel
     against its plain vjp at the train step's shapes, timed; (b) one train
     step on the card against the port on the CPU; (c) 8 steps on one fixed
@@ -977,7 +1007,7 @@ def train_phase(torch, dev, data_root: Path, tmp: Path,
             if profile:
                 say(device_breakdown(torch, lambda: step(state, frames, t_dev),
                                      f"[{tag} profile] one train step, "
-                                     f"{scfg.compute_dtype}")[0])
+                                     f"{scfg.compute_dtype}", profile)[0])
             bench = benchmark_ab(torch, lambda: step(state, frames, t_dev))
         want = {k: v * OVERFIT_STEPS for k, v in TRAIN_LAUNCHES.items()}
         check(counts == want, f"{tag}: train launches {counts} != {want} over "
@@ -1316,6 +1346,404 @@ def ddp_phase(torch, dev, tmp: Path, inputs: dict) -> dict:
                 cli_epoch_loss=res["epoch_losses"][0])
 
 
+def remat_phase(torch, dev, inputs: dict, rates: dict) -> dict:
+    """Phase 9(a): phase 7(c)'s train step (DeMFI-Net_rb(5,3), batch 2,
+    256x256, N_trn = 5, the same weights and batch) without remat, with
+    the whole backbone recomputed and with each RDB recomputed, at
+    float32 and at bfloat16: REMAT_STEPS steps each, seconds a step,
+    forward / backward device ms, peak memory (reset per mode) and
+    exactly 7(c)'s launches. Then the exactness check: with
+    cudnn.deterministic and the stencil forward warp (the flow head
+    calibrated into its window), one step's gradients of each mode
+    against two plain steps' (bitwise where the two plain steps agree
+    bitwise, else within gradient_bounds' rule of the card's own
+    change between two runs)."""
+    from demfi_torch.config import config_rb
+    from demfi_torch.models import make_model
+    from demfi_torch.ops import kernels
+    from demfi_torch.train import create_train_state, make_train_step
+    from demfi_torch.utils.grad_check import GRAD_TOL, rel_frobenius
+    from demfi_torch.utils.profiling import calibrate_flow_head
+
+    frames = torch.from_numpy(inputs["batch"]).to(dev)
+    t_dev = torch.from_numpy(inputs["t"]).to(dev)
+
+    def mode_cfg(dtype, mode, **kw):
+        return config_rb(5, 3, seed=SEED, compute_dtype=dtype,
+                         remat_backbone=mode is not None,
+                         remat_granularity=mode or "backbone", **kw)
+
+    def fresh(cfg, weights):
+        m = make_model(cfg, device=dev)
+        m.load_state_dict(weights, strict=True)
+        return m
+
+    rows = {}
+    for dtype in ("float32", "bfloat16"):
+        for mode in REMAT_MODES:
+            cfg = mode_cfg(dtype, mode)
+            model = fresh(cfg, inputs["weights"])
+            check(model.remat == mode, f"9(a): model.remat {model.remat}")
+            torch.cuda.synchronize()
+            torch.cuda.empty_cache()
+            torch.cuda.reset_peak_memory_stats()
+            kernels.reset_launch_counts()
+            losses, secs, split = [], [], []
+            with torch.enable_grad():
+                state = create_train_state(cfg, model)
+                step = make_train_step(cfg)
+                for _ in range(REMAT_STEPS):
+                    ev = {k: torch.cuda.Event(enable_timing=True)
+                          for k in ("start", "forward", "backward",
+                                    "optimizer")}
+                    t0 = time.perf_counter()
+                    ev["start"].record()
+                    m_ = step(state, frames, t_dev,
+                              on_phase=lambda phase: ev[phase].record())
+                    losses.append(float(m_["total_loss"]))
+                    torch.cuda.synchronize()
+                    secs.append(time.perf_counter() - t0)
+                    split.append([ev["start"].elapsed_time(ev["forward"]),
+                                  ev["forward"].elapsed_time(ev["backward"])])
+            counts = kernels.launch_counts()
+            peak = torch.cuda.max_memory_allocated()
+            want = {k: v * REMAT_STEPS for k, v in TRAIN_LAUNCHES.items()}
+            check(counts == want, f"9(a) {dtype} remat {mode}: launches "
+                                  f"{counts} != {want}")
+            check(all(np.isfinite(losses)), f"9(a) {dtype} remat {mode}: "
+                                            f"losses {losses}")
+            rows[(dtype, mode)] = dict(
+                step_s=float(np.median(secs[1:])), step_seconds=secs,
+                losses=losses, peak_bytes=peak,
+                forward_backward_ms=np.median(np.array(split[1:]),
+                                              axis=0).tolist(),
+                launches_per_step={k: v / REMAT_STEPS
+                                   for k, v in counts.items()})
+            del model, state, step
+            torch.cuda.empty_cache()
+    gib = 2 ** 30
+    for dtype in ("float32", "bfloat16"):
+        plain = rows[(dtype, None)]
+        for mode in REMAT_MODES:
+            r = rows[(dtype, mode)]
+            d_peak = (r["peak_bytes"] - plain["peak_bytes"]) / gib
+            pred = REMAT_PREDICTED_GIB.get(mode)
+            rate = rates[dtype]
+            say(f"[9a remat] {dtype}, remat {mode or 'none'}: "
+                f"{REMAT_STEPS} steps of DeMFI-Net_rb(5,3) at "
+                f"{TRAIN_B}x{TRAIN_PS}x{TRAIN_PS} from 7(c)'s weights and "
+                f"batch, seconds {['%.4f' % v for v in r['step_seconds']]}, "
+                f"median after the first {r['step_s']:.4f} s "
+                f"({100 * (r['step_s'] / plain['step_s'] - 1):+.1f} % against "
+                f"none; 7(c) {TRAIN_B / rate:.4f} s); device ms forward "
+                f"{r['forward_backward_ms'][0]:.2f}, backward "
+                f"{r['forward_backward_ms'][1]:.2f}; peak allocated "
+                f"{r['peak_bytes'] / gib:.3f} GiB ({d_peak:+.3f} GiB "
+                f"against none"
+                + (f"; predicted {pred[0]:+.1f} to {pred[1]:+.1f} GiB at "
+                   f"float32" if pred else "")
+                + f"); launches per step {r['launches_per_step']}")
+
+    # ---- exactness: the stencil forward warp and deterministic cuDNN
+    inputs4 = frames[:, :4].permute(0, 1, 4, 2, 3).contiguous()
+    exact = {}
+    torch.backends.cudnn.deterministic = True
+    try:
+        for dtype in ("float32", "bfloat16"):
+            base = mode_cfg(dtype, None, fwarp_shift_d=SHIFT_D)
+            cal = fresh(base, inputs["weights"])
+            calibrate_flow_head(cal, inputs4, EVAL_FLOW_PX)
+            weights = {k: v.detach().clone()
+                       for k, v in cal.state_dict().items()}
+            del cal
+
+            def grads(mode):
+                cfg = mode_cfg(dtype, mode, fwarp_shift_d=SHIFT_D)
+                model = fresh(cfg, weights)
+                got = {}
+
+                def snap(phase):
+                    if phase == "backward":
+                        got.update({k: p.grad.detach().clone()
+                                    for k, p in model.named_parameters()
+                                    if p.grad is not None})
+                kernels.fwarp_served(dev, reset=True)
+                with torch.enable_grad():
+                    make_train_step(cfg)(create_train_state(cfg, model),
+                                         frames, t_dev, on_phase=snap)
+                served = kernels.fwarp_served(dev)
+                check(served == {"fwarp_shift": SPLATS_PER_WINDOW,
+                                 "fwarp_splat": 0},
+                      f"9(a) exactness {dtype} {mode}: forward warps served "
+                      f"by {served}")
+                return got
+            a, b = grads(None), grads(None)
+            plain_bitwise = a.keys() == b.keys() and all(
+                torch.equal(a[k], b[k]) for k in a)
+            res = {"plain_bitwise": plain_bitwise}
+            for mode in REMAT_MODES[1:]:
+                g = grads(mode)
+                check(g.keys() == a.keys(), f"9(a) {dtype} {mode}: other "
+                                            f"parameters have gradients")
+                bitwise = all(torch.equal(g[k], a[k]) for k in a)
+                worst = max(rel_frobenius(g[k].cpu(), a[k].cpu()) for k in a)
+                if plain_bitwise:
+                    check(bitwise, f"9(a) {dtype} remat {mode}: gradients "
+                                   f"not bitwise the plain step's (worst "
+                                   f"{worst:.3g}), while two plain steps are")
+                else:
+                    for k in a:
+                        bound = max(GRAD_TOL, 2 * rel_frobenius(
+                            b[k].cpu(), a[k].cpu()))
+                        err = rel_frobenius(g[k].cpu(), a[k].cpu())
+                        check(err <= bound, f"9(a) {dtype} remat {mode} {k}: "
+                                            f"{err:.3g} > {bound:.3g}")
+                res[mode] = dict(bitwise=bitwise, worst_rel_frobenius=worst)
+            exact[dtype] = res
+            say(f"[9a remat] exactness, {dtype}, cudnn.deterministic, "
+                f"--fwarp_shift_d {SHIFT_D} (flow head calibrated to "
+                f"{EVAL_FLOW_PX} px, every CFR warp on the stencil): two "
+                f"plain steps bitwise equal: {plain_bitwise}; "
+                + "; ".join(f"remat {m}: gradients bitwise the plain step's "
+                            f"{res[m]['bitwise']} (worst relative Frobenius "
+                            f"{res[m]['worst_rel_frobenius']:.3g})"
+                            for m in REMAT_MODES[1:])
+                + ("" if plain_bitwise else
+                   f"; held to max({GRAD_TOL:.0e}, twice the plain runs' "
+                   f"own change) per tensor"))
+    finally:
+        torch.backends.cudnn.deterministic = False
+    del frames, t_dev, inputs4
+    torch.cuda.empty_cache()
+    return dict(rows={f"{d} {m or 'none'}": r for (d, m), r in rows.items()},
+                exact=exact, predicted_gib=REMAT_PREDICTED_GIB)
+
+
+def loader_phase(tmp: Path, rates: dict) -> dict:
+    """Phase 9(b): TrainLoader's samples/s at 256x256 patches on one
+    synthetic scene at Adobe240's 1280x720 (written with imageio; the 15
+    frames a sample can read are full PNGs, the others of the scene
+    links to one of them; LOADER_SCENES scene directories link to it),
+    with the native augment and with the numpy chain, beside the
+    seconds a sample spends decoding its 9 PNGs on one thread."""
+    from demfi_torch.data import AdobeTrainDataset, TrainLoader, imageio
+
+    rng = np.random.RandomState(SEED + 9)
+    root = tmp / "loader_data"
+    blur_ids = [17 + 8 * k for k in range(4)]
+    # first = 1: S-1 16, S0 24, St 25..31, S1 32, S2 40
+    read = {16, 40} | set(range(24, 33))
+    sharp0, blur0 = root / "train" / "scene0", root / "train_blur" / "scene0"
+    sharp0.mkdir(parents=True)
+    blur0.mkdir(parents=True)
+    low = rng.uniform(0, 255, (LOADER_H // 16, LOADER_W // 16, 3))
+    base = np.repeat(np.repeat(low, 16, 0), 16, 1)
+
+    def frame(i):
+        noise = rng.randint(-6, 7, base.shape)
+        return np.clip(np.roll(base, i, axis=1) + noise, 0, 255).astype(
+            np.uint8)
+    t0 = time.perf_counter()
+    for i in sorted(read):
+        imageio.imwrite(str(sharp0 / f"{i:05d}.png"), frame(i))
+    for i in range(blur_ids[-1]):
+        if i not in read:
+            os.symlink(sharp0 / "00016.png", sharp0 / f"{i:05d}.png")
+    for i in blur_ids:
+        imageio.imwrite(str(blur0 / f"{i:05d}.png"), frame(i))
+    for sc in range(1, LOADER_SCENES):
+        for split in ("train", "train_blur"):
+            os.symlink(root / split / "scene0", root / split / f"scene{sc}")
+    write_s = time.perf_counter() - t0
+    png_mb = np.mean([os.path.getsize(sharp0 / f"{i:05d}.png")
+                      for i in read]) / 2 ** 20
+
+    sample_files = ([str(blur0 / f"{i:05d}.png") for i in blur_ids]
+                    + [str(sharp0 / f"{i:05d}.png") for i in (28, 24, 32,
+                                                              16, 40)])
+
+    def per_sample(read_fn):
+        t0 = time.perf_counter()
+        for f in sample_files:
+            read_fn(f)
+        return time.perf_counter() - t0
+    decode_s = per_sample(imageio.imread)
+    zlib_s = per_sample(imageio.read_png)
+    # cv2 writes PNGs with row filters, which the zlib route undoes in
+    # H + W - 1 numpy steps; the zlib route writes filter 0 only
+    route = "cv2" if imageio._cv2() is not None else "zlib"
+
+    out = {}
+    for native in (True, False):
+        ds = AdobeTrainDataset(str(root), patch_size=TRAIN_PS,
+                               use_native=native)
+        loader = TrainLoader(ds, TRAIN_B, num_threads=8, seed=SEED)
+        for _ in loader.epoch(0):                       # warm-up
+            pass
+        n, t0 = 0, time.perf_counter()
+        for e in range(1, 1 + LOADER_EPOCHS):
+            for fr, _ in loader.epoch(e):
+                check(fr.shape == (TRAIN_B, 9, TRAIN_PS, TRAIN_PS, 3)
+                      and fr.dtype == np.float32,
+                      f"9(b): a batch of {fr.shape} {fr.dtype}")
+                n += fr.shape[0]
+        out["native" if native else "numpy"] = n / (time.perf_counter() - t0)
+    say(f"[9b loader] TrainLoader, 8 threads, {TRAIN_PS}x{TRAIN_PS} patches "
+        f"from {LOADER_W}x{LOADER_H} PNGs ({png_mb:.2f} MiB each, "
+        f"{len(read) + len(blur_ids)} written in {write_s:.2f} s), "
+        f"{LOADER_EPOCHS} epochs of {LOADER_SCENES} samples after a warm-up: "
+        f"{out['native']:.3f} samples/s with the native augment, "
+        f"{out['numpy']:.3f} with the numpy chain; one sample's 9 PNGs "
+        f"(written and read by {route}) decode in {decode_s:.4f} s on one "
+        f"thread through imageio.imread, {zlib_s:.4f} s through the zlib "
+        f"route; against the "
+        f"train step's {rates['float32']:.3f} samples/s (7(c), float32) and "
+        f"{rates['bfloat16']:.3f} (7(c'), bfloat16)")
+    return dict(samples_per_s=out, decode_s_per_sample=decode_s,
+                zlib_decode_s_per_sample=zlib_s, decoder=route,
+                png_mib=png_mb, step_samples_per_s=rates)
+
+
+def tools_phase(torch, dev, tmp: Path, ckpt: str) -> dict:
+    """Phase 9(c): import_pt -> export_pt -> import_pt on phase 6's
+    checkpoint: the two msgpack files (and their json) byte-identical,
+    the exported .pt loads strictly with every tensor bitwise the
+    original's, and a window through the reloaded model within 1e-3 of
+    the original's on the card."""
+    from demfi_torch import tools
+    from demfi_torch.checkpoint import load_checkpoint
+    from demfi_torch.config import config_rb
+    from demfi_torch.infer import InferenceEngine, WindowResult
+    from demfi_torch.models import make_model
+    from demfi_torch.ops import kernels
+
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(io.StringIO()):
+        first = tools.import_pt(ckpt, str(tmp / "tools_a"))
+        exported = tools.export_pt(first + ".msgpack",
+                                   str(tmp / "tools_exported.pt"))
+        second = tools.import_pt(exported, str(tmp / "tools_b"))
+    wall = time.perf_counter() - t0
+    for ext in (".msgpack", ".json"):
+        check(Path(first + ext).read_bytes() == Path(second + ext).read_bytes(),
+              f"9(c): the two imports' {ext} files differ")
+    orig, _ = load_checkpoint(ckpt)
+    back, meta = load_checkpoint(exported)
+    check(list(back) == list(orig)
+          and all(torch.equal(back[k], orig[k]) for k in orig),
+          "9(c): the exported .pt's tensors are not the original's")
+    cfg = config_rb(5, 3, seed=SEED)
+    models = []
+    for sd in (orig, back):
+        m = make_model(cfg, device=dev)
+        m.load_state_dict(sd, strict=True)
+        models.append(m)
+    rng = np.random.RandomState(SEED + 11)
+    small = rng.uniform(-1, 1, (1, 4, SMALL_H, SMALL_W, 3)).astype(np.float32)
+    ts = (np.arange(1, M, dtype=np.float32) / M)[None]
+    kernels.reset_launch_counts()
+    a, b = (InferenceEngine(m, num_update=cfg.N_tst, device=dev)
+            .forward_windows(small, ts)[0] for m in models)
+    counts = kernels.launch_counts()
+    check(counts["bilinear_gather"] == 2 * GATHERS_PER_WINDOW
+          and counts["fwarp_splat"] == 2 * SPLATS_PER_WINDOW,
+          f"9(c): launches {counts}")
+    gap = max(float(np.abs(getattr(a, f.name) - getattr(b, f.name)).max())
+              for f in dataclasses.fields(WindowResult))
+    check(gap <= PATH_ATOL, f"9(c): the reloaded model's window is {gap} off")
+    mib = os.path.getsize(first + ".msgpack") / 2 ** 20
+    say(f"[9c tools] import_pt -> export_pt -> import_pt on phase 6's "
+        f"checkpoint in {wall:.2f} s: msgpack {mib:.1f} MiB, both imports "
+        f"byte-identical (msgpack and json {meta}); the exported .pt loads "
+        f"strictly, {len(back)} tensors bitwise the original's; a x{M} "
+        f"window at {SMALL_H}x{SMALL_W} through the reloaded model within "
+        f"{gap:.3g} of the original's (tol {PATH_ATOL:.0e}); launches "
+        f"{counts}")
+    del models
+    torch.cuda.empty_cache()
+    return dict(seconds=wall, msgpack_mib=mib, window_gap=gap)
+
+
+def harness_phase(torch, dev, tmp: Path, ckpt: str, phase6: tuple,
+                  n_windows: int) -> dict:
+    """Phase 9(d): ``python -m demfi_torch.scripts.repro_table2``'s main
+    on phase 6's tree and checkpoint at x8, --budget_db inf: exit 0,
+    finite metrics, the x8 window's launches, and PSNR within
+    HARNESS_PSNR_TOL of phase 6's float32 --phase test on the same
+    weights."""
+    from demfi_torch.ops import kernels
+    from demfi_torch.scripts import repro_table2
+
+    wd = tmp / "table2"
+    out = io.StringIO()
+    kernels.reset_launch_counts()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(out):
+        rc = repro_table2.main(["--data", str(tmp / "data"), "--ckpt", ckpt,
+                                "--multiples", str(M), "--budget_db", "inf",
+                                "--N_tst", "3", "--workdir", str(wd),
+                                "--device", str(dev)])
+    wall = time.perf_counter() - t0
+    counts = kernels.launch_counts()
+    check(rc == 0, f"9(d): repro_table2 exit {rc}:\n{out.getvalue()}")
+    rep = json.loads((wd / "repro_table2.json").read_text())
+    r = rep["results"][f"x{M}"]
+    check(all(np.isfinite(r[k]) for k in ("interp_psnr", "interp_ssim",
+                                          "deblur_psnr", "deblur_ssim")),
+          f"9(d): metrics {r}")
+    check(counts == {"bilinear_gather": GATHERS_PER_WINDOW * n_windows,
+                     "fwarp_splat": SPLATS_PER_WINDOW * n_windows,
+                     "fwarp_shift": 0, "bilinear_gather_bwd": 0,
+                     "fwarp_splat_bwd": 0}, f"9(d): launches {counts}")
+    d_i = r["interp_psnr"] - phase6[1]
+    d_d = r["deblur_psnr"] - phase6[3]
+    check(abs(d_i) <= HARNESS_PSNR_TOL and abs(d_d) <= HARNESS_PSNR_TOL,
+          f"9(d): PSNR {r['interp_psnr']}, {r['deblur_psnr']} against phase "
+          f"6's {phase6[1]}, {phase6[3]}")
+    table = [ln for ln in out.getvalue().splitlines()
+             if ln.startswith(("adobe", "metric"))]
+    say(f"[9d table2] python -m demfi_torch.scripts.repro_table2 --multiples "
+        f"{M} --budget_db inf --N_tst 3 on phase 6's tree and checkpoint: "
+        f"exit {rc} in {wall:.2f} s (x{M} evaluation {r['wall_s']:.2f} s); "
+        f"intp PSNR {r['interp_psnr']:.4f} ({d_i:+.2e} dB against phase 6's "
+        f"--phase test), deblur PSNR {r['deblur_psnr']:.4f} ({d_d:+.2e}; tol "
+        f"{HARNESS_PSNR_TOL:.0e}), SSIM {r['interp_ssim']:.6f} / "
+        f"{r['deblur_ssim']:.6f}; launches {counts}; its table:\n"
+        + "\n".join(table))
+    return dict(rc=rc, wall_s=wall, results=r,
+                psnr_gap_db=[d_i, d_d], launches=counts)
+
+
+def sanity_phase(dev, tmp: Path) -> dict:
+    """Phase 9(e): demfi_torch.scripts.synthetic_sanity at its defaults
+    on the card: it must pass (+6 dB on both metrics)."""
+    from demfi_torch.ops import kernels
+    from demfi_torch.scripts import synthetic_sanity
+
+    lines = []
+    kernels.reset_launch_counts()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(io.StringIO()):   # evaluate's tables
+        res = synthetic_sanity.run(str(tmp / "sanity"), device=str(dev),
+                                   log=lines.append)
+    wall = time.perf_counter() - t0
+    counts = kernels.launch_counts()
+    check(all(counts[k] > 0 for k in ("bilinear_gather", "fwarp_splat",
+                                      "bilinear_gather_bwd",
+                                      "fwarp_splat_bwd")),
+          f"9(e): launches {counts}")
+    check(res["ok"] and "SANITY PASS" in lines,
+          "9(e): synthetic_sanity did not pass:\n" + "\n".join(lines))
+    (i0, i1), (d0, d1) = res["interp_db"], res["deblur_db"]
+    say(f"[9e sanity] synthetic_sanity, {res['steps']} steps of "
+        f"DeMFI-Net_rb(1,1) at batch 2, 48x48: interp {i0:.2f} -> {i1:.2f} "
+        f"dB ({i1 - i0:+.2f}), deblur {d0:.2f} -> {d1:.2f} dB "
+        f"({d1 - d0:+.2f}); SANITY PASS in {wall:.2f} s (data "
+        f"{res['generate_s']:.2f} s, one evaluation {res['eval_s']:.2f} s, "
+        f"training {res['train_s']:.2f} s); launches {counts}")
+    return dict(res, wall_s=wall, launches=counts)
+
+
 def gather_bwd_timings(torch, dev, kernels, warp) -> list:
     """Phase 3c (``--kernels-of`` only): the gather's backward at the
     train step's three sites on synthetic inputs (gather_bwd_sites), so
@@ -1419,7 +1847,11 @@ def splat_bwd_timings(torch, dev, kernels, warp) -> dict:
 
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
-    ap.add_argument("--profile", action="store_true")
+    ap.add_argument("--profile", nargs="?", const="profile_trace",
+                    default="", metavar="DIR",
+                    help="print a torch.profiler breakdown of one window "
+                         "and of one train step, and keep every trace "
+                         "under DIR (default ./profile_trace)")
     ap.add_argument("--kernels-of", metavar="DIR", default="",
                     help="run phases 1-3d on the checkout of the port at "
                          "DIR and stop ('.' for this one; an earlier "
@@ -1433,6 +1865,11 @@ def main() -> int:
     import torch
     if not torch.cuda.is_available():
         fail("no CUDA device: the port's smoke run needs one GPU")
+    # the profiler's traces: kept under --profile's DIR, else in a
+    # directory removed at exit
+    trace_tmp = (None if args.profile
+                 else tempfile.TemporaryDirectory(prefix="demfi_trace_"))
+    trace_dir = args.profile or trace_tmp.name
     sys.path.insert(0, str(Path(args.kernels_of).resolve() if args.kernels_of
                            else Path(__file__).resolve().parent))
     import torch.nn.functional as F
@@ -1954,7 +2391,7 @@ def main() -> int:
 
     text, busy = device_breakdown(
         torch, lambda: engine.forward_windows(frames, ts),
-        "[4 profile] one window")
+        "[4 profile] one window", trace_dir)
     if args.profile:
         say(text)
 
@@ -2001,7 +2438,7 @@ def main() -> int:
     shift16, certified16, label16 = bf16_serving_label(psnr16)
     text16, busy16 = device_breakdown(
         torch, lambda: engine16.forward_windows(frames, ts),
-        "[4b profile] one window, bfloat16")
+        "[4b profile] one window, bfloat16", trace_dir)
     if args.profile:
         say(text16)
     s_win16 = sum(secs16) / REPEATS
@@ -2280,7 +2717,27 @@ def main() -> int:
         train = train_phase(torch, dev, tmp / "data", tmp, args.profile)
 
         # ------------------------------------------- 8. data parallelism
-        ddp = ddp_phase(torch, dev, tmp, train.pop("ddp_inputs"))
+        step_inputs = train.pop("ddp_inputs")
+        ddp = ddp_phase(torch, dev, tmp, step_inputs)
+
+        # ------------------------------------------- 9. the last modules
+        rates = {d: train[d]["samples_per_s"] for d in ("float32", "bfloat16")}
+        last = dict(remat=remat_phase(torch, dev, step_inputs, rates),
+                    loader=loader_phase(tmp, rates),
+                    tools=tools_phase(torch, dev, tmp, str(ckpt)),
+                    table2=harness_phase(torch, dev, tmp, str(ckpt),
+                                         runs[1]["result"], n_windows),
+                    sanity=sanity_phase(dev, tmp))
+        del step_inputs
+
+    if args.profile:
+        traces = sorted(Path(args.profile).glob("*.pt.trace.json"))
+        check(len(traces) >= 4 and all(p.stat().st_size > 0 for p in traces),
+              f"--profile: traces {traces} under {args.profile}")
+        say(f"[profile] {len(traces)} torch.profiler traces under "
+            f"{args.profile}: "
+            + ", ".join(f"{p.name} {p.stat().st_size / 2 ** 20:.1f} MiB"
+                        for p in traces))
 
     # ---------------------------------------------------------- results
     def entry(name, source, replaces, launches, on_path, weight, extra):
@@ -2329,6 +2786,7 @@ def main() -> int:
     gather_bwd_src = "demfi_torch/csrc/bilinear_gather_bwd.cu"
     gather_bwd_replaces = ("demfi_tpu/ops/warp.py:448 (no Pallas kernel: the "
                            "vjp of _bwarp_xla, and of _bilinear_abs_xla :494)")
+    say("[9 summary] " + json.dumps(last, default=str))
     say(json.dumps({"kernels": [
         summary("bilinear_gather", gather_src,
                 "demfi_tpu/ops/pallas_kernels.py:58", GATHERS_PER_WINDOW,

@@ -4,8 +4,8 @@ across from the JAX package's Flax parameter tree.
 The port's ``state_dict`` keys and shapes are the reference torch
 model's, so a reference ``.pt`` loads with ``strict=True`` and no
 conversion. The JAX package's ``.msgpack`` checkpoints cross over with
-its own ``python -m demfi_tpu.tools export_pt``; the port does not read
-msgpack.
+``python -m demfi_torch.tools export_pt`` (and back with ``import_pt``),
+through the port's own msgpack codec (``checkpoint/msgpack.py``).
 
 The Flax modules mirror the reference torch attribute names with list
 indices flattened (``RDBs.3`` -> ``RDBs_3``, ``conv.0`` -> ``conv_0``) and
@@ -18,6 +18,8 @@ torch model's:
   params/Dec_first/kernel  [3,3,I,O]
       -> Dec_first.weight  [O,I,1,3,3]   (Conv3d, temporal extent 1)
   */bias -> *.bias  (unchanged)
+
+:func:`state_dict_to_flax_params` is the inverse.
 """
 from __future__ import annotations
 
@@ -49,6 +51,40 @@ def flax_path_to_torch_key(path: Tuple[str, ...]) -> str:
     return ".".join(parts + [leaf])
 
 
+def torch_key_to_flax_path(key: str) -> Tuple[Tuple[str, ...], str]:
+    """'FF_RDB_Module.RDBs.3.LFF.weight' ->
+    (('FF_RDB_Module', 'RDBs_3', 'LFF'), 'kernel'): each index merged
+    into the name before it."""
+    parts = key.split(".")
+    leaf = parts.pop()
+    if leaf == "weight":
+        leaf = "kernel"
+    elif leaf != "bias":
+        raise ValueError(f"unexpected torch leaf {leaf!r} in {key!r}")
+    merged: list = []
+    for p in parts:
+        if re.fullmatch(r"\d+", p):
+            if not merged:
+                raise ValueError(f"leading index in {key!r}")
+            merged[-1] = f"{merged[-1]}_{p}"
+        else:
+            merged.append(p)
+    return tuple(merged), leaf
+
+
+def _weight_to_kernel(w: np.ndarray) -> np.ndarray:
+    """OIHW -> HWIO; a Conv3d weight [O,I,1,kH,kW] loses its temporal
+    axis first."""
+    if w.ndim == 5:
+        if w.shape[2] != 1:
+            raise ValueError(f"only temporal-extent-1 Conv3d supported, "
+                             f"got {w.shape}")
+        w = w[:, :, 0]
+    if w.ndim != 4:
+        raise ValueError(f"unexpected conv weight rank {w.shape}")
+    return np.transpose(w, (2, 3, 1, 0))
+
+
 def _kernel_to_weight(k: np.ndarray, conv3d: bool) -> np.ndarray:
     """HWIO -> OIHW, plus a temporal axis of 1 for the Conv3d layers."""
     w = np.transpose(k, (3, 2, 0, 1))
@@ -67,7 +103,7 @@ def flax_params_to_state_dict(variables: Mapping[str, Any]
                 walk(val, path + (name,))
                 continue
             key = flax_path_to_torch_key(path + (name,))
-            arr = np.asarray(val, np.float32)
+            arr = np.array(val, np.float32)      # a copy: val may be read-only
             if name == "kernel":
                 conv3d = any(key.startswith(p) for p in _CONV3D_PREFIXES)
                 arr = _kernel_to_weight(arr, conv3d)
@@ -75,6 +111,27 @@ def flax_params_to_state_dict(variables: Mapping[str, Any]
 
     walk(variables["params"], ())
     return out
+
+
+def state_dict_to_flax_params(state_dict: Mapping[str, Any]
+                              ) -> Dict[str, Any]:
+    """The port's (or the reference's) state_dict -> {'params': nested
+    numpy float32 tree}, the inverse of :func:`flax_params_to_state_dict`.
+    The nested dicts are built in the state_dict's key order, as the JAX
+    package's converter builds them, so the msgpack bytes of the tree
+    equal its."""
+    root: Dict[str, Any] = {}
+    for key, val in state_dict.items():
+        arr = np.asarray(val.detach().cpu().numpy()
+                         if isinstance(val, torch.Tensor) else val)
+        path, leaf = torch_key_to_flax_path(key)
+        if leaf == "kernel":
+            arr = _weight_to_kernel(arr)
+        node = root
+        for p in path:
+            node = node.setdefault(p, {})
+        node[leaf] = arr.astype(np.float32)
+    return {"params": root}
 
 
 def load_training_checkpoint(path: str

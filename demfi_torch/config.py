@@ -53,6 +53,15 @@ class DeMFIConfig:
     rec_D2_lambda: float = 1.0
     # resume from the latest checkpoint when one exists
     auto_resume: bool = False
+    # Recompute the RDN backbone in the backward pass instead of keeping
+    # its activations (torch.utils.checkpoint): less device memory for
+    # more work in a train step; no effect outside training.
+    remat_backbone: bool = False
+    # "backbone": the whole FF_RDB_Module is one checkpoint (only its
+    # input survives to the backward pass; the 12-RDB chain runs twice);
+    # "rdb": each RDB is one (the 12 inter-RDB activations are kept,
+    # less to recompute). Read only when remat_backbone is set.
+    remat_granularity: str = "backbone"
 
     # ---- architecture ----
     img_ch: int = 3

@@ -9,7 +9,7 @@ from demfi_torch.data.datasets import (
     build_train_index,
     get_test_data,
 )
-from demfi_torch.data.pipeline import TrainLoader, device_prefetch
+from demfi_torch.data.pipeline import TrainLoader, device_prefetch, iter_eval
 
 __all__ = [
     "AdobeTrainDataset",
@@ -23,4 +23,5 @@ __all__ = [
     "build_train_index",
     "device_prefetch",
     "get_test_data",
+    "iter_eval",
 ]

@@ -69,10 +69,16 @@ class AdobeTrainDataset:
     crop, horizontal flip and rot90, and a random temporal reversal with
     t -> 1 - t. The draws from ``rng`` come in the JAX package's order,
     so one seed gives the same sample in both.
+
+    ``use_native``: the crop, flip, rot90 and normalisation run as one
+    native pass (``demfi_torch.data.native``, built with g++ at first
+    use; a failed build raises), bitwise equal to the numpy chain that
+    ``use_native=False`` takes.
     """
 
     def __init__(self, train_data_path: str, t_sampling_num: int = 8,
-                 patch_size: int = 256, need_patch: bool = True):
+                 patch_size: int = 256, need_patch: bool = True,
+                 use_native: bool = True):
         # the t grid uses t_sampling_num; the blur-frame interval itself
         # is derived from the file names
         self.sharp, self.blur = build_train_index(train_data_path)
@@ -81,6 +87,7 @@ class AdobeTrainDataset:
         self.k = t_sampling_num
         self.patch_size = patch_size
         self.need_patch = need_patch
+        self.use_native = use_native
         self.t_grid = np.linspace(1 / self.k, 1 - 1 / self.k, self.k - 1)
 
     def __len__(self) -> int:
@@ -124,6 +131,11 @@ class AdobeTrainDataset:
         flip = rng.random() < 0.5
         rot = rng.randint(0, 3)
 
+        if self.use_native:
+            from demfi_torch.data import native
+            return TrainSample(native.augment_pack(frames, iy, ix, ps, flip,
+                                                   rot),
+                               np.array([t_value], np.float32))
         frames = frames[:, iy:iy + ps, ix:ix + ps]
         if flip:
             frames = frames[:, :, ::-1]

@@ -1,10 +1,12 @@
-"""Host-side input pipeline of training: threaded decode and augment, and
-batches copied to the device ahead of the step.
+"""Host-side input pipeline: threaded decode and augment for training,
+batches copied to the device ahead of the step, and an ordered
+prefetching iterator over an evaluation dataset.
 
 Worker threads (PNG decode releases the interpreter lock in cv2 and in
 zlib) fill a bounded queue of samples; batches come out in order, NHWC
 numpy. ``device_prefetch`` keeps ``depth`` batches in flight to the
-device from pinned host memory.
+device from pinned host memory. ``iter_eval`` loads an EvalDataset's
+samples in order on a thread, ``prefetch`` ahead of the consumer.
 """
 from __future__ import annotations
 
@@ -17,7 +19,7 @@ from typing import Iterator, Tuple
 import numpy as np
 import torch
 
-from demfi_torch.data.datasets import AdobeTrainDataset
+from demfi_torch.data.datasets import AdobeTrainDataset, EvalDataset
 
 
 class TrainLoader:
@@ -149,3 +151,45 @@ def device_prefetch(iterator, device, depth: int = 2):
             yield buf.popleft()
     while buf:
         yield buf.popleft()
+
+
+def iter_eval(dataset: EvalDataset, prefetch: int = 2) -> Iterator[dict]:
+    """``dataset.load(i)`` for i = 0, 1, ... in order, loaded on one
+    thread through a queue of ``prefetch`` samples. An exception of a
+    load is raised here, at its place in the order."""
+    q: "queue.Queue" = queue.Queue(maxsize=prefetch)
+    stop = threading.Event()
+
+    def put(item) -> bool:
+        while not stop.is_set():
+            try:
+                q.put(item, timeout=0.1)
+                return True
+            except queue.Full:
+                pass
+        return False
+
+    def producer():
+        for i in range(len(dataset)):
+            try:
+                item = dataset.load(i)
+            except Exception as e:      # handed to the consumer, raised there
+                put(e)
+                return
+            if not put(item):
+                return
+        put(None)
+
+    t = threading.Thread(target=producer, daemon=True)
+    t.start()
+    try:
+        while True:
+            item = q.get()
+            if item is None:
+                return
+            if isinstance(item, Exception):
+                raise item
+            yield item
+    finally:
+        stop.set()
+        t.join(timeout=10)

@@ -28,11 +28,12 @@ operands (``torch.cat`` promotes a mixed list to float32).
 from __future__ import annotations
 
 import dataclasses
-from typing import Dict, List, Tuple
+from typing import Dict, List, Optional, Tuple
 
 import torch
 import torch.nn as nn
 import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
 from demfi_torch.config import DeMFIConfig
 from demfi_torch.ops import (
@@ -45,6 +46,17 @@ from demfi_torch.ops import (
 
 COMPUTE_DTYPES: Dict[str, torch.dtype] = {"float32": torch.float32,
                                            "bfloat16": torch.bfloat16}
+REMAT_GRANULARITIES = ("backbone", "rdb")
+
+
+def _remat(fn, *args):
+    """``fn(*args)``, recomputed in the backward pass where autograd
+    records (training) instead of keeping its activations. The
+    non-reentrant form: the backbone's input frames need no gradient, and
+    the reentrant form would then return none for the parameters."""
+    if not torch.is_grad_enabled():
+        return fn(*args)
+    return checkpoint(fn, *args, use_reentrant=False)
 
 
 def _conv_in(dt: torch.dtype, conv, x: torch.Tensor, weight: torch.Tensor,
@@ -165,10 +177,11 @@ class FFRDB(nn.Module):
 
     def __init__(self, nf: int, scale_factor: int = 2, g0: int = 96,
                  num_rdb: int = 12, n_convs: int = 4, growth: int = 32,
-                 img_ch: int = 3):
+                 img_ch: int = 3, remat_rdb: bool = False):
         super().__init__()
         self.nf = nf
         self.scale_factor = scale_factor
+        self.remat_rdb = remat_rdb     # recompute each RDB in training
         self.SFENet1 = _conv(4 * img_ch * scale_factor ** 2, g0, 5)
         self.SFENet2 = _conv(g0, g0, 3)
         self.RDBs = nn.ModuleList([RDB(g0, growth, n_convs)
@@ -185,7 +198,7 @@ class FFRDB(nn.Module):
         x = self.SFENet2(f1)
         rdb_outs = []
         for rdb in self.RDBs:
-            x = rdb(x)
+            x = _remat(rdb, x) if self.remat_rdb else rdb(x)
             rdb_outs.append(x)
         x = self.GFF(torch.cat(rdb_outs, dim=1)) + f1
         s = self.UPNet(x)
@@ -455,7 +468,9 @@ class DeMFINet(nn.Module):
     order (B0, B1, B-1, B2); ``synthesize`` takes t_value [B] or [B, 1]
     and a Python int ``num_update``. ``compute_dtype``: the convolutions'
     dtype (float32 or bfloat16); the parameters are float32 either
-    way."""
+    way. ``remat``: None, or the granularity ("backbone" or "rdb") at
+    which a train step recomputes the RDN backbone in its backward pass
+    (the same values and gradients, less memory)."""
 
     def __init__(self, nf: int = 64, scale_factor: int = 2,
                  num_res_facfb: int = 5, num_res_dec: int = 5,
@@ -463,18 +478,24 @@ class DeMFINet(nn.Module):
                  fgac_sr: int = 0, use_stage2: bool = True,
                  viz_internals: bool = False, img_ch: int = 3,
                  fwarp_shift_d: int = 0,
-                 compute_dtype: torch.dtype = torch.float32):
+                 compute_dtype: torch.dtype = torch.float32,
+                 remat: Optional[str] = None):
         super().__init__()
         if compute_dtype not in COMPUTE_DTYPES.values():
             raise ValueError(f"compute_dtype must be float32 or bfloat16, "
                              f"got {compute_dtype}")
+        if remat is not None and remat not in REMAT_GRANULARITIES:
+            raise ValueError(f"remat granularity must be one of "
+                             f"{REMAT_GRANULARITIES}, got {remat!r}")
+        self.remat = remat
         self.nf = nf
         self.fgac_rr = fgac_rr
         # window of CFR's deterministic forward warp (0: atomic splat)
         self.fwarp_shift_d = fwarp_shift_d
         self.use_stage2 = use_stage2
         self.viz_internals = viz_internals
-        self.FF_RDB_Module = FFRDB(nf, scale_factor, img_ch=img_ch)
+        self.FF_RDB_Module = FFRDB(nf, scale_factor, img_ch=img_ch,
+                                   remat_rdb=remat == "rdb")
         self.FAC_FB_Module = FACFB(nf, num_res_facfb, shared_fgac, fgac_rr,
                                    fgac_sr, viz_internals)
         self.Refine_Module = RefineUNet(nf)
@@ -526,7 +547,10 @@ class DeMFINet(nn.Module):
             raise ValueError(f"expected 4 input frames, got {t}")
         # frame-major concat: channel index = frame * 3 + colour
         cat = frames.reshape(b, t * c, h, w)
-        f0, f1, flow_01, flow_10, occ = self.FF_RDB_Module(cat)
+        if self.remat == "backbone":
+            f0, f1, flow_01, flow_10, occ = _remat(self.FF_RDB_Module, cat)
+        else:
+            f0, f1, flow_01, flow_10, occ = self.FF_RDB_Module(cat)
         a_f0, a_f1, bws, diffs, stacks = self.FAC_FB_Module(
             f0, f1, flow_10, flow_01)
         viz_stacks = (stacks + ((flow_01, flow_10),)
@@ -673,13 +697,18 @@ def init_weights(model: nn.Module, generator: torch.Generator) -> None:
 def make_model(cfg: DeMFIConfig, device=None) -> DeMFINet:
     """Build DeMFI-Net for ``cfg`` with random weights seeded by
     ``cfg.seed``, on ``device`` (the GPU unless the caller asks for the
-    CPU), computing in ``cfg.compute_dtype`` with float32 parameters."""
+    CPU), computing in ``cfg.compute_dtype`` with float32 parameters,
+    recomputing the backbone in training where ``cfg.remat_backbone``."""
     from demfi_torch import resolve_device
 
     dev = resolve_device(device)
     if cfg.compute_dtype not in COMPUTE_DTYPES:
         raise ValueError(f"compute_dtype must be one of "
                          f"{sorted(COMPUTE_DTYPES)}, got {cfg.compute_dtype!r}")
+    if cfg.remat_granularity not in REMAT_GRANULARITIES:
+        raise ValueError(f"remat_granularity must be one of "
+                         f"{REMAT_GRANULARITIES}, got "
+                         f"{cfg.remat_granularity!r}")
     model = DeMFINet(
         nf=cfg.nf, scale_factor=cfg.scale_factor,
         num_res_facfb=cfg.num_ResB_FACFB, num_res_dec=cfg.num_ResB_Dec,
@@ -687,7 +716,8 @@ def make_model(cfg: DeMFIConfig, device=None) -> DeMFINet:
         fgac_sr=cfg.fgac_sr, use_stage2=max(cfg.N_trn, cfg.N_tst) > 0,
         viz_internals=cfg.visualization_flag, img_ch=cfg.img_ch,
         fwarp_shift_d=cfg.fwarp_shift_d,
-        compute_dtype=COMPUTE_DTYPES[cfg.compute_dtype])
+        compute_dtype=COMPUTE_DTYPES[cfg.compute_dtype],
+        remat=cfg.remat_granularity if cfg.remat_backbone else None)
     gen = torch.Generator().manual_seed(cfg.seed)
     init_weights(model, gen)
     return model.to(dev).eval()

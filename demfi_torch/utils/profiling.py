@@ -1,7 +1,9 @@
-"""Synthetic-benchmark helpers and a per-step timer."""
+"""A profiler trace, synthetic-benchmark helpers and a per-step timer."""
 from __future__ import annotations
 
+import contextlib
 import json
+import os
 import time
 from typing import Dict, List, Optional
 
@@ -9,6 +11,30 @@ import numpy as np
 import torch
 
 from demfi_torch.models.demfi import DeMFINet
+
+
+@contextlib.contextmanager
+def device_trace(logdir: str):
+    """A ``torch.profiler`` trace of the block, written under ``logdir``
+    when it ends (a Chrome trace, ``<host>_<pid>.<ms>.pt.trace.json``,
+    that TensorBoard's profiler plugin and Perfetto open). It records the
+    host's operators, and the card's kernels and copies where CUDA is
+    present. Yields the profiler, whose ``events()`` and
+    ``key_averages()`` the caller may read after the block. Usage:
+
+        with device_trace("./log_dir/profile"):
+            engine.forward_windows(frames, ts)
+    """
+    from torch.profiler import (ProfilerActivity, profile,
+                                tensorboard_trace_handler)
+
+    os.makedirs(logdir, exist_ok=True)
+    activities = [ProfilerActivity.CPU]
+    if torch.cuda.is_available():
+        activities.append(ProfilerActivity.CUDA)
+    with profile(activities=activities,
+                 on_trace_ready=tensorboard_trace_handler(logdir)) as prof:
+        yield prof
 
 
 @torch.no_grad()

@@ -10,7 +10,13 @@ import pytest
 import torch
 
 ROOT = Path(__file__).resolve().parent.parent
-FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "demfi_tpu")
+FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "demfi_tpu", "msgpack")
+# the modules of the last slice: checkpoint tools, the native augment and
+# the harnesses
+LAST_MODULES = ("tools.py", "checkpoint/msgpack.py", "data/native/__init__.py",
+                "scripts/__init__.py", "scripts/repro_table2.py",
+                "scripts/synthetic_sanity.py", "utils/profiling.py",
+                "data/pipeline.py")
 
 
 def _port_files():
@@ -33,6 +39,7 @@ def test_no_jax_imports_in_port():
     assert ROOT / "demfi_torch" / "main.py" in files
     assert {ROOT / "demfi_torch" / "parallel" / f
             for f in ("__init__.py", "distributed.py")} <= set(files)
+    assert {ROOT / "demfi_torch" / f for f in LAST_MODULES} <= set(files)
     bad = [(str(f.relative_to(ROOT)), m) for f in files
            for m in _imported_roots(f) if m in FORBIDDEN]
     assert not bad, bad
@@ -46,6 +53,9 @@ def test_imports_with_jax_absent():
         for p in (ROOT / "demfi_torch").rglob("*.py"))
     mods = [m[:-len(".__init__")] if m.endswith(".__init__") else m
             for m in mods]
+    assert {"demfi_torch.tools", "demfi_torch.checkpoint.msgpack",
+            "demfi_torch.data.native", "demfi_torch.scripts.repro_table2",
+            "demfi_torch.scripts.synthetic_sanity"} <= set(mods)
     code = ("import sys\n"
             "for m in %r: sys.modules[m] = None\n"
             "import importlib\n"
