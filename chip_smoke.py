@@ -5,7 +5,7 @@
     python3 chip_smoke.py --profile [DIR]  # adds a torch.profiler
                                      # breakdown of one window and of one
                                      # train step; keeps the traces in DIR
-    python3 chip_smoke.py --kernels-of DIR   # phases 1-3d only, on the
+    python3 chip_smoke.py --kernels-of DIR   # phases 1-3e only, on the
                                      # checkout of the port at DIR
 
 Phases:
@@ -151,7 +151,25 @@ Phases:
      ``demfi_torch.scripts.repro_table2`` at x8 on phase 6's tree and
      checkpoint, PSNR within 1e-3 dB of phase 6's --phase test; (e)
      ``demfi_torch.scripts.synthetic_sanity`` at its defaults must print
-     SANITY PASS.
+     SANITY PASS;
+ 10. the spatial axis (``--mesh_spatial``): ranks of its own (this script
+     with ``--spatial-rank``), NCCL with one rank a card and S = min(4,
+     cards) where there are two cards or more, else two gloo ranks
+     sharing the one card (S = 2); (a) phase 4's window and weights with
+     the frame's rows split S ways against phase 4's and 4b's unsplit
+     results (float32 within 1e-4 of each field's largest value, bfloat16
+     by the moments rule), then ``cli --phase test --fwarp_shift_d 8
+     --mesh_spatial S`` on phase 6's tree (metrics within 1e-3 of phase
+     6's, PNGs within one uint8 step), with exact launches on every rank;
+     (c) windows/s split at 352x640 and 1080p beside the unsplit rates,
+     each rank's peak memory, the collectives' share of a window (CUDA
+     events around each), and UHD untiled at t_chunk 1 where there are
+     four cards.
+Phase 3e (also under ``--kernels-of``): the three forward kernels on
+every shard of 2- and 4-way row splits of the 352x640 frame, against
+their plain versions and the unsplit kernel's rows (gather 1e-5, its
+bfloat16 image 1e-2, the splat 1e-5 and its summed canvases, the
+stencil bit for bit); the kernels line carries them as "row_offset".
 
 Prints a "[9 summary]" line and a {"kernels": [...]} line, then as its
 last line
@@ -250,6 +268,18 @@ LOADER_H, LOADER_W = 720, 1280   # Adobe240's frames
 LOADER_SCENES = 16               # scene directories, all links to one
 LOADER_EPOCHS = 2                # timed, after one warm-up epoch
 HARNESS_PSNR_TOL = 1e-3          # dB: the Table-2 harness against phase 6
+# phase 3e: the forward kernels on the rows of a frame split this many ways
+ROW_OFFSET_SPLITS = (2, 4)
+GATHER_BF16_ROW_TOL = 1e-2     # of the largest value, bfloat16 image
+# phase 10: the spatial axis. A split window against the unsplit one: of
+# each field's largest value (float32; the convolutions see other shapes
+# and may take other algorithms, the splat's sums another order)
+SPATIAL_RTOL = 1e-4
+SPATIAL_METRIC_TOL = 1e-3      # dB (and loss, SSIM): --mesh_spatial vs phase 6
+SPATIAL_REPEATS = 2            # timed windows at 352x640
+SPATIAL_TIMEOUT = 600          # s, for all ranks
+HD = (1080, 1920)
+UHD = (2160, 3840)
 EMPTY_KERNEL_SRC = r"""
 #include <cuda_runtime.h>
 __global__ void demfi_empty_kernel() {}
@@ -1845,6 +1875,436 @@ def splat_bwd_timings(torch, dev, kernels, warp) -> dict:
     return out
 
 
+def row_offset_checks(torch, dev, kernels, warp, timer, a, b, ft0, ft1,
+                      flow_01, t, peak) -> list:
+    """Phase 3e: each forward kernel on the rows of a frame split in
+    ROW_OFFSET_SPLITS ways, on every shard, at the main path's shapes
+    (352x640, x8): the gather pair (C=64, float32 and bfloat16 images) at
+    its row offset against its plain version and against the unsplit
+    kernel's rows; the splat of a shard's source rows into the whole
+    frame's canvas against its plain version, and the shards' canvases
+    summed against the unsplit kernel; the stencil on a shard's rows with
+    its halo against its plain version and the unsplit kernel's rows, bit
+    for bit. Times (device ms, cold) of shard 0 of each split. Returns the
+    rows of the kernels line's "row_offset" entries; a checkout whose
+    kernels take no row offsets (``--kernels-of``) returns []."""
+    rows_arg = "row0" in inspect.signature(kernels.bilinear_gather).parameters
+    if not rows_arg:
+        say("[3e row offsets] not checked: this checkout's kernels take no "
+            "row offsets")
+        return []
+    out = []
+    whole_g = kernels.bilinear_gather_pair(a, b, ft0, ft1, True)[0]
+    a16, b16 = a.bfloat16(), b.bfloat16()
+    whole_g16 = kernels.bilinear_gather_pair(a16, b16, ft0, ft1, True)[0]
+    img_s = flow_01
+    flo_s = (t * flow_01).contiguous()
+    whole_s = kernels.fwarp_splat(img_s, flo_s)
+    img_k = (flow_01 * ((SHIFT_D - 1.1) / peak)).contiguous()
+    flo_k = (t * img_k).contiguous()
+    whole_k = kernels.fwarp_shift(img_k, flo_k, SHIFT_D)
+    for split in ROW_OFFSET_SPLITS:
+        rows = H // split
+        canvas = [torch.zeros_like(v) for v in whole_s]
+        for i in range(split):
+            r0, r1 = i * rows, (i + 1) * rows
+            c0, c1 = (f[:, :, r0:r1].contiguous() for f in (ft0, ft1))
+            timed = i == 0
+            # the gather, float32 and bfloat16 images
+            for tag, (ia, ib), whole, tol in (
+                    ("float32", (a, b), whole_g, GATHER_TOL),
+                    ("bfloat16", (a16, b16), whole_g16, GATHER_BF16_ROW_TOL)):
+                def call(ia=ia, ib=ib):
+                    return kernels.bilinear_gather_pair(ia, ib, c0, c1, True,
+                                                        row0=r0)[0]
+
+                def plain(ia=ia, ib=ib):
+                    return (warp.bilinear_gather_plain(ia, c0, True, r0)[0],
+                            warp.bilinear_gather_plain(ib, c1, True, r0)[0])
+                got, want = call(), plain()
+                scale = max(float(w.abs().max()) for w in want)
+                err = max(float((g - w).abs().max())
+                          for g, w in zip(got, want))
+                same = all(torch.equal(g, w[:, :, r0:r1])
+                           for g, w in zip(got, whole))
+                check(err <= tol * scale and same,
+                      f"row-offset gather {tag} split {split} shard {i}: err "
+                      f"{err} (tol {tol * scale}), equal to the unsplit "
+                      f"kernel's rows: {same}")
+                out.append(dict(
+                    kernel="bilinear_gather", image_dtype=tag, split=split,
+                    shard=i, rows=[r0, r1], max_abs_err=err, tol=tol * scale,
+                    equal_to_unsplit_rows=same,
+                    ms=timer.ms(call, 5) if timed else None,
+                    plain_ms=timer.ms(plain, 2) if timed else None))
+            # the splat of this shard's source rows into the whole canvas
+            il, fl = img_s[:, :, r0:r1].contiguous(), \
+                flo_s[:, :, r0:r1].contiguous()
+
+            def call():
+                return kernels.fwarp_splat(il, fl, rows=(r0, H))
+
+            def plain():
+                return warp.fwarp_splat_plain(il, fl, (r0, H))
+            got, want = call(), plain()
+            for cv, g in zip(canvas, got):
+                cv += g
+            scale = max(1.0, float(want[0].abs().max()))
+            err = max(float((g - w).abs().max()) for g, w in zip(got, want))
+            check(err <= SPLAT_RTOL * scale,
+                  f"row-offset splat split {split} shard {i}: err {err}")
+            out.append(dict(
+                kernel="fwarp_splat", split=split, shard=i, rows=[r0, r1],
+                max_abs_err=err, tol=SPLAT_RTOL * scale,
+                ms=timer.ms(call, 5) if timed else None,
+                plain_ms=timer.ms(plain, 2) if timed else None))
+            # the stencil on this shard's rows and its halo
+            lo, hi = max(r0 - SHIFT_D - 1, 0), min(r1 + SHIFT_D, H)
+            ih, fh = (v[:, :, lo:hi].contiguous() for v in (img_k, flo_k))
+
+            def call():
+                return kernels.fwarp_shift(ih, fh, SHIFT_D, rows=(r0 - lo, rows))
+
+            def plain():
+                return warp.fwarp_shift_plain(ih, fh, SHIFT_D, (r0 - lo, rows))
+            got, want = call(), plain()
+            bitwise = all(torch.equal(g, w) for g, w in zip(got, want))
+            same = all(torch.equal(g, w[:, :, r0:r1])
+                       for g, w in zip(got, whole_k))
+            err = max(float((g - w).abs().max()) for g, w in zip(got, want))
+            check(bitwise and same,
+                  f"row-offset stencil split {split} shard {i}: bitwise equal "
+                  f"to plain {bitwise}, to the unsplit kernel's rows {same}")
+            out.append(dict(
+                kernel="fwarp_shift", split=split, shard=i, rows=[r0, r1],
+                halo=[r0 - lo, hi - r1], max_abs_err=err, tol=0.0,
+                bitwise_equal_to_plain=bitwise, equal_to_unsplit_rows=same,
+                ms=timer.ms(call, 5) if timed else None,
+                plain_ms=timer.ms(plain, 2) if timed else None))
+        scale = max(1.0, float(whole_s[0].abs().max()))
+        err = max(float((c - w).abs().max()) for c, w in zip(canvas, whole_s))
+        check(err <= SPLAT_RTOL * scale,
+              f"row-offset splat split {split}: summed canvases err {err}")
+        out.append(dict(kernel="fwarp_splat", split=split, shard="sum",
+                        max_abs_err=err, tol=SPLAT_RTOL * scale))
+    for kname in ("bilinear_gather", "fwarp_splat", "fwarp_shift"):
+        mine = [r for r in out if r["kernel"] == kname]
+        worst = max(r["max_abs_err"] / max(r["tol"], 1e-30)
+                    if r["tol"] else r["max_abs_err"] for r in mine)
+        times = ", ".join(
+            f"{r['split']}-way shard 0{' ' + r['image_dtype'] if 'image_dtype' in r else ''}"
+            f" {r['ms']:.4f} ms (plain {r['plain_ms']:.4f})"
+            for r in mine if r.get("ms") is not None)
+        say(f"[3e row offsets] {kname}: {len(mine)} checks on {ROW_OFFSET_SPLITS}"
+            f"-way splits of {H}x{W}, every shard; worst "
+            f"{'err/tol' if kname != 'fwarp_shift' else 'abs err (bitwise)'} "
+            f"{worst:.3g}; {times}")
+    del whole_g, whole_g16, a16, b16, whole_s, whole_k
+    return out
+
+
+def spatial_rank(work: Path, rank: int) -> int:
+    """One rank of phase 10 (chip_smoke.py --spatial-rank R --spatial-dir
+    DIR, started by spatial_phase): joins the group spec.json names,
+    runs the split engine on phase 4's window and weights at float32 and
+    bfloat16, times windows at 352x640 and 1080p (and UHD with four
+    cards), then ``cli --phase test`` on phase 6's tree with
+    --mesh_spatial; writes rank<R>.json and, on rank 0, the results."""
+    spec = json.loads((work / "spec.json").read_text())
+    sys.path.insert(0, spec["tree"])
+    import torch
+    from demfi_torch import disable_tf32
+    from demfi_torch.config import config_rb
+    from demfi_torch.infer import InferenceEngine
+    from demfi_torch.main import cli
+    from demfi_torch.models import make_model
+    from demfi_torch.ops import kernels
+    from demfi_torch.parallel import (destroy_distributed, init_distributed,
+                                      make_grid)
+    from demfi_torch.parallel import halo
+
+    size, backend = spec["size"], spec["backend"]
+    init_distributed(f"127.0.0.1:{spec['port']}", size, rank, "cuda", backend)
+    dev = torch.device("cuda", torch.cuda.current_device())
+    grid = make_grid(0, size)
+    disable_tf32()
+    torch.set_grad_enabled(False)
+    weights = torch.load(work / "weights.pt")
+    frames = np.load(work / "frames.npy")
+    ts = np.load(work / "ts.npy")
+    out = dict(rank=rank, device=str(dev), runs={})
+
+    def run(tag, engine, fr, n_timed, keep=False):
+        engine.forward_windows(fr, ts)                      # warm-up
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats(dev)
+        kernels.reset_launch_counts()
+        secs = []
+        for _ in range(n_timed):
+            t0 = time.perf_counter()
+            res = engine.forward_windows(fr, ts)
+            torch.cuda.synchronize()
+            secs.append(time.perf_counter() - t0)
+        counts = kernels.launch_counts()
+        bf16 = kernels.bf16_launch_counts()
+        peak = torch.cuda.max_memory_allocated(dev)
+        # one window more, every collective between CUDA events
+        halo.timing = []
+        t0 = time.perf_counter()
+        ev0, ev1 = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+        ev0.record()
+        engine.forward_windows(fr, ts)
+        ev1.record()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        coll_ms = sum(a.elapsed_time(b) for a, b in halo.timing)
+        n_coll = len(halo.timing)
+        halo.timing = None
+        out["runs"][tag] = dict(
+            seconds=secs, windows_per_s=n_timed / sum(secs),
+            launches=counts, bf16_launches=bf16, peak_bytes=peak,
+            collectives=n_coll, collectives_ms=coll_ms,
+            window_ms=ev0.elapsed_time(ev1), window_wall_s=wall,
+            shape=list(fr.shape[2:4]))
+        if keep and rank == 0:
+            np.savez(work / f"res_{tag}.npz", **vars(res[0]))
+
+    for dtype in ("float32", "bfloat16"):
+        cfg = config_rb(5, 3, seed=SEED, compute_dtype=dtype)
+        model = make_model(cfg, device=dev)
+        model.load_state_dict(weights, strict=True)
+        engine = InferenceEngine(model, cfg.N_tst, device=dev, grid=grid)
+        run(f"{dtype} {H}x{W}", engine, frames, SPATIAL_REPEATS, keep=True)
+        if dtype == "float32":
+            hd = np.random.RandomState(SEED + 10).uniform(
+                -1, 1, (1, 4) + HD + (3,)).astype(np.float32)
+            run(f"float32 {HD[0]}x{HD[1]}", engine, hd, 1)
+            if spec["uhd"]:
+                engine.t_chunk = 1
+                uhd = np.random.RandomState(SEED + 11).uniform(
+                    -1, 1, (1, 4) + UHD + (3,)).astype(np.float32)
+                run(f"float32 {UHD[0]}x{UHD[1]} t_chunk 1", engine, uhd, 1)
+        del engine, model
+        torch.cuda.empty_cache()
+    destroy_distributed()
+
+    # the evaluation entry point on phase 6's tree, rows split
+    kernels.reset_launch_counts()
+    t0 = time.perf_counter()
+    res = cli(spec["cli"] + ["--coordinator_address",
+                             f"127.0.0.1:{spec['cli_port']}",
+                             "--num_processes", str(size),
+                             "--process_id", str(rank)])
+    out["cli"] = dict(result=list(res[:5]), save_root=res[5],
+                      seconds=time.perf_counter() - t0,
+                      launches=kernels.launch_counts())
+    (work / f"rank{rank}.json").write_text(json.dumps(out))
+    print(f"SPATIAL_RANK_DONE {rank}", flush=True)
+    return 0
+
+
+def spatial_phase(torch, dev, tmp: Path, weights: dict, frames, ts,
+                  ref32, ref16, s_win: float, phase6: dict,
+                  eval_argv: list, card: str) -> dict:
+    """Phase 10: the spatial axis (--mesh_spatial) on the card. Ranks of
+    its own (spatial_rank): with two cards or more NCCL, one rank a
+    card, S = min(4, cards); with one card two gloo ranks sharing it,
+    S = 2. (a) the split window against phase 4's and 4b's unsplit one
+    (same card, weights and frames): float32 within SPATIAL_RTOL of the
+    largest value, bfloat16 by the moments rule; cli --phase test
+    --fwarp_shift_d 8 --mesh_spatial S on phase 6's tree: metrics within
+    SPATIAL_METRIC_TOL of phase 6's, PNGs within one uint8 step; (c)
+    windows/s split at 352x640 and 1080p beside the unsplit rates, each
+    rank's peak memory, the collectives' share of a window (CUDA events
+    around each), and UHD at t_chunk 1 where four cards are there."""
+    from demfi_torch.infer import WindowResult
+    from demfi_torch.data import imageio
+
+    cards = torch.cuda.device_count()
+    backend, size = (("nccl", min(4, cards)) if cards >= 2 else ("gloo", 2))
+    say(f"[10 spatial] {cards} card(s): {size} ranks, backend {backend}, "
+        + ("one rank a card" if backend == "nccl" else
+           "two gloo ranks sharing the one card (their collectives staged "
+           "through the host): a check of exactness and of the path, no "
+           "scaling figure"))
+    work = tmp / "spatial"
+    work.mkdir()
+    torch.save(weights, work / "weights.pt")
+    np.save(work / "frames.npy", frames)
+    np.save(work / "ts.npy", ts)
+
+    # the unsplit 1080p rate, on this process's card, for comparison
+    from demfi_torch.config import config_rb
+    from demfi_torch.infer import InferenceEngine
+    from demfi_torch.models import make_model
+    model = make_model(config_rb(5, 3, seed=SEED), device=dev)
+    model.load_state_dict(weights, strict=True)
+    engine = InferenceEngine(model, 3, device=dev)
+    hd = np.random.RandomState(SEED + 10).uniform(
+        -1, 1, (1, 4) + HD + (3,)).astype(np.float32)
+    engine.forward_windows(hd, ts)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    engine.forward_windows(hd, ts)
+    torch.cuda.synchronize()
+    hd_s = time.perf_counter() - t0
+    hd_peak = torch.cuda.max_memory_allocated()
+    del engine, model
+    torch.cuda.empty_cache()
+    say(f"[10 spatial] unsplit reference, float32: {H}x{W} {1 / s_win:.4f} "
+        f"windows/s (phase 4); {HD[0]}x{HD[1]} {1 / hd_s:.4f} windows/s "
+        f"({hd_s:.3f} s, t-chunked by the memory budget), peak "
+        f"{hd_peak / 2 ** 30:.2f} GiB")
+
+    argv = eval_argv + ["--mesh_spatial", str(size),
+                        "--test_img_dir", str(tmp / "imgs_spatial")]
+    if backend == "gloo":
+        argv += ["--dist_backend", "gloo"]
+    (work / "spec.json").write_text(json.dumps(dict(
+        tree=str(Path(__file__).resolve().parent), size=size,
+        backend=backend, port=free_port(), cli_port=free_port(),
+        uhd=size >= 4, cli=argv)))
+    env = dict(os.environ)
+    t0 = time.perf_counter()
+    procs = [subprocess.Popen(
+        [sys.executable, str(Path(__file__).resolve()), "--spatial-rank",
+         str(r), "--spatial-dir", str(work)], stdout=subprocess.PIPE,
+        stderr=subprocess.STDOUT, text=True, env=env) for r in range(size)]
+    texts = []
+    try:
+        for p in procs:
+            texts.append(p.communicate(timeout=SPATIAL_TIMEOUT)[0])
+    finally:
+        for p in procs:
+            p.kill()
+            p.wait(timeout=30)
+    spawn_s = time.perf_counter() - t0
+    for r, (p, text) in enumerate(zip(procs, texts)):
+        check(p.returncode == 0, f"phase 10 rank {r} failed:\n{text[-3000:]}")
+    outs = [json.loads((work / f"rank{r}.json").read_text())
+            for r in range(size)]
+
+    # (a) exactness against phase 4 / 4b (same card, weights, frames)
+    fields = [f.name for f in dataclasses.fields(WindowResult)]
+    got32 = np.load(work / f"res_float32 {H}x{W}.npz")
+    worst = (0.0, "")
+    for name in fields:
+        want = getattr(ref32, name)
+        g = got32[name]
+        check(g.shape == want.shape and bool(np.isfinite(g).all()),
+              f"10(a) {name}: {g.shape} finite {np.isfinite(g).all()}")
+        rel = float(np.abs(g - want).max()) / max(float(np.abs(want).max()),
+                                                  1e-30)
+        worst = max(worst, (rel, name))
+    check(worst[0] <= SPATIAL_RTOL,
+          f"10(a) float32 split window: {worst[1]} off by {worst[0]:.3g} of "
+          f"its largest value (tol {SPATIAL_RTOL})")
+    got16 = np.load(work / f"res_bfloat16 {H}x{W}.npz")
+    worst16 = (0.0, "")
+    for name in fields:
+        a, b = got16[name], getattr(ref16, name)
+        gap = max(abs(float(a.mean()) - float(b.mean())),
+                  abs(float(a.std()) - float(b.std())))
+        worst16 = max(worst16, (gap, name))
+    check(worst16[0] <= BF16_MOMENTS_TOL,
+          f"10(a) bfloat16 split window: {worst16[1]} moments gap "
+          f"{worst16[0]:.4g}")
+    say(f"[10 spatial] (a) x8 DeMFI-Net_rb(5,3) {H}x{W}, {size}-way rows, "
+        f"against phase 4's unsplit window (same weights, frames, card): "
+        f"float32 worst field {worst[1]} {worst[0]:.3g} of its largest value "
+        f"(tol {SPATIAL_RTOL}); bfloat16 largest gap of mean or std "
+        f"{worst16[0]:.4g} ({worst16[1]}; tol {BF16_MOMENTS_TOL})")
+
+    # launches of the split path: every rank runs every kernel
+    for o in outs:
+        run = o["runs"][f"float32 {H}x{W}"]
+        want = {"bilinear_gather": GATHERS_PER_WINDOW * SPATIAL_REPEATS,
+                "fwarp_splat": SPLATS_PER_WINDOW * SPATIAL_REPEATS,
+                "fwarp_shift": 0, "bilinear_gather_bwd": 0,
+                "fwarp_splat_bwd": 0}
+        check(run["launches"] == want,
+              f"10 rank {o['rank']}: launches {run['launches']} != {want}")
+        run16 = o["runs"][f"bfloat16 {H}x{W}"]
+        check(run16["launches"] == want and run16["bf16_launches"][
+            "bilinear_gather"] == BF16_GATHERS_PER_WINDOW * SPATIAL_REPEATS,
+            f"10 rank {o['rank']}: bfloat16 launches {run16['launches']}, "
+            f"{run16['bf16_launches']}")
+
+    # the evaluation entry point
+    n_windows = phase6["windows"]
+    res0 = outs[0]["cli"]
+    for o in outs:
+        check(o["cli"]["result"] == res0["result"],
+              f"10 cli: rank {o['rank']} metrics {o['cli']['result']} differ "
+              f"from rank 0's {res0['result']}")
+        want_l = {"bilinear_gather": GATHERS_PER_WINDOW * n_windows,
+                  "fwarp_shift": SPLATS_PER_WINDOW * n_windows,
+                  "fwarp_splat": 0, "bilinear_gather_bwd": 0,
+                  "fwarp_splat_bwd": 0}
+        check(o["cli"]["launches"] == want_l,
+              f"10 cli rank {o['rank']}: launches {o['cli']['launches']} "
+              f"!= {want_l}")
+    d_metrics = max(abs(a - b) for a, b in zip(res0["result"],
+                                               phase6["result"][:5]))
+    check(d_metrics <= SPATIAL_METRIC_TOL,
+          f"10 cli: metrics {res0['result']} against phase 6's "
+          f"{list(phase6['result'][:5])}")
+    worst_px, n_png = 0, 0
+    for rel in phase6["files"]:
+        path = Path(res0["save_root"]) / rel
+        check(path.exists(), f"10 cli: {rel} not written")
+        a = imageio.imread(str(path)).astype(np.int16)
+        b = imageio.imread(str(Path(phase6["result"][5]) / rel)).astype(
+            np.int16)
+        worst_px = max(worst_px, int(np.abs(a - b).max()))
+        n_png += 1
+    check(worst_px <= 1, f"10 cli: a PNG differs from phase 6's by {worst_px}")
+    say(f"[10 spatial] (a) cli --phase test --fwarp_shift_d {SHIFT_D} "
+        f"--mesh_spatial {size} on phase 6's tree: metrics {res0['result']} "
+        f"(phase 6 {[round(v, 6) for v in phase6['result'][:5]]}, largest gap "
+        f"{d_metrics:.3g}, tol {SPATIAL_METRIC_TOL}); {n_png} PNGs, largest "
+        f"pixel gap {worst_px} (tol 1); launches on rank 0 "
+        f"{res0['launches']}; {res0['seconds']:.2f} s")
+
+    # (c) times
+    # the kernels line's launches on this path: rank 0's float32 windows
+    # and its --phase test run (the stencil serves there)
+    launches = {k: outs[0]["runs"][f"float32 {H}x{W}"]["launches"][k]
+                + res0["launches"][k] for k in res0["launches"]}
+    summary = dict(ranks=size, backend=backend, cards=cards,
+                   launches_rank0=launches,
+                   spawn_seconds=spawn_s, exact_float32=worst[0],
+                   exact_bf16_moments=worst16[0], cli_metric_gap=d_metrics,
+                   cli_pixel_gap=worst_px, unsplit_windows_per_s={
+                       f"{H}x{W}": 1 / s_win, f"{HD[0]}x{HD[1]}": 1 / hd_s},
+                   unsplit_hd_peak_bytes=hd_peak, runs={})
+    for tag in outs[0]["runs"]:
+        r0 = outs[0]["runs"][tag]
+        peaks = [o["runs"][tag]["peak_bytes"] for o in outs]
+        share = r0["collectives_ms"] / r0["window_ms"]
+        summary["runs"][tag] = dict(
+            windows_per_s=r0["windows_per_s"], seconds=r0["seconds"],
+            peak_bytes_per_rank=peaks, collectives=r0["collectives"],
+            collectives_ms=r0["collectives_ms"], window_ms=r0["window_ms"],
+            collectives_share=share)
+        say(f"[10 spatial] (c) {tag}, {size}-way rows ({backend}): "
+            f"{r0['windows_per_s']:.4f} windows/s (seconds "
+            f"{['%.3f' % v for v in r0['seconds']]}); peak allocated per rank "
+            f"{[round(p / 2 ** 30, 2) for p in peaks]} GiB; {r0['collectives']} "
+            f"collectives {r0['collectives_ms']:.1f} ms of a "
+            f"{r0['window_ms']:.1f} ms window = {100 * share:.1f} % (CUDA "
+            f"events around each, rank 0)")
+    if size < 4:
+        say(f"[10 spatial] (c) UHD {UHD[0]}x{UHD[1]} float32 untiled at "
+            f"t_chunk 1: not run; it waits for four cards ({cards} here)")
+    if backend == "gloo":
+        say("[10 spatial] (c) two ranks sharing one card: no scaling figure "
+            "(each rank's work and the host-staged collectives share one "
+            "card and one host)")
+    return summary
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--profile", nargs="?", const="profile_trace",
@@ -1860,11 +2320,16 @@ def main() -> int:
                          "stencil's row count and largest window and the "
                          "gather backward's route counts, is then not "
                          "checked)")
+    ap.add_argument("--spatial-rank", type=int, default=None,
+                    help=argparse.SUPPRESS)
+    ap.add_argument("--spatial-dir", default="", help=argparse.SUPPRESS)
     args = ap.parse_args()
 
     import torch
     if not torch.cuda.is_available():
         fail("no CUDA device: the port's smoke run needs one GPU")
+    if args.spatial_rank is not None:       # one rank of phase 10
+        return spatial_rank(Path(args.spatial_dir), args.spatial_rank)
     # the profiler's traces: kept under --profile's DIR, else in a
     # directory removed at exit
     trace_tmp = (None if args.profile
@@ -2096,6 +2561,9 @@ def main() -> int:
              n_b1.bfloat16(), ft0, ft1, per_window_bf16=3)
     single("gather abs C=64 B=1 query 3Hx3W", 0, ctx.f0.contiguous(),
            warp.fgac_window_coords(ctx.flow_01, 1).contiguous(), False)
+    # 3e: the forward kernels on the rows of a split frame
+    offset_rows = row_offset_checks(torch, dev, kernels, warp, timer, n_f0,
+                                    n_f1, ft0, ft1, flow_01, t, peak)
     f01 = torch.cat([n_f0, n_f1])
     del n_f0, n_f1
     single("gather rel C=64 B=14", 0, f01, flows_t, True)
@@ -2330,6 +2798,7 @@ def main() -> int:
                             torch, dev, kernels, warp),
                         "splat_bwd": splat_bwd_timings(
                             torch, dev, kernels, warp),
+                        "row_offset": offset_rows,
                         "tree": args.kernels_of}))
         return 0
 
@@ -2513,6 +2982,9 @@ def main() -> int:
         f"mean or std {worst16[0]:.4g} ({worst16[1]}; tol "
         f"{BF16_MOMENTS_TOL})")
 
+    # phase 10 holds its split window against these, on these weights
+    weights10 = {k: v.detach().cpu() for k, v in model.state_dict().items()}
+    ref32, ref16 = res[0], res16[0]
     del engine, model, cpu_model, gpu_res, cpu_res, res
     del engine16, model16, cpu16, gpu16_res, cpu16_res, res16
     torch.cuda.empty_cache()
@@ -2730,6 +3202,14 @@ def main() -> int:
                     sanity=sanity_phase(dev, tmp))
         del step_inputs
 
+        # ------------------------------------------- 10. the spatial axis
+        torch.cuda.empty_cache()
+        spatial = spatial_phase(
+            torch, dev, tmp, weights10, frames, ts, ref32, ref16, s_win,
+            dict(result=runs[1]["result"], files=runs[1]["files"],
+                 windows=n_windows), argv, card)
+        del weights10, ref32, ref16
+
     if args.profile:
         traces = sorted(Path(args.profile).glob("*.pt.trace.json"))
         check(len(traces) >= 4 and all(p.stat().st_size > 0 for p in traces),
@@ -2760,6 +3240,12 @@ def main() -> int:
             else "operations",
             library_ms=total("library_ms"), **extra, shapes=on_path)
 
+    spatial_launches = spatial["launches_rank0"]
+
+    def offsets(kname, dtype="float32"):
+        return [r for r in offset_rows if r["kernel"] == kname
+                and r.get("image_dtype", "float32") == dtype]
+
     def summary(kname, source, replaces, per_window, launches):
         return entry(kname, source, replaces, launches,
                      [r for r in rows if r["kernel"] == kname
@@ -2768,6 +3254,8 @@ def main() -> int:
                          launches_per_window=per_window,
                          launches_eval_path=eval_launches[kname],
                          launches_train_path=train["counts"][kname],
+                         launches_spatial_path=spatial_launches[kname],
+                         row_offset=offsets(kname),
                          times_are="per window, summed over its launches"))
 
     def bwd_summary(kname, source, replaces):
@@ -2800,6 +3288,7 @@ def main() -> int:
                   launches_per_window=BF16_GATHERS_PER_WINDOW,
                   launches_eval_path=bf16_eval["bilinear_gather"],
                   launches_train_path=train["bf16_counts"]["bilinear_gather"],
+                  row_offset=offsets("bilinear_gather", "bfloat16"),
                   times_are="per bfloat16 window, summed over its launches "
                             "of this instantiation")),
         summary("fwarp_splat", "demfi_torch/csrc/fwarp_splat.cu",
@@ -2846,7 +3335,7 @@ def main() -> int:
         "eval_engine_stream_span_share": ev["stream_span"] / ev["wall"],
         "train": {k: v for k, v in train.items()
                   if k not in ("bwd_rows", "counts", "bf16_counts")},
-        "ddp": ddp}))
+        "ddp": ddp, "spatial": spatial}))
     say(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

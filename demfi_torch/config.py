@@ -99,6 +99,16 @@ class DeMFIConfig:
     coordinator_address: Optional[str] = None
     num_processes: Optional[int] = None
     process_id: Optional[int] = None
+    # the group's backend: None for NCCL on cards and gloo on the CPU;
+    # "gloo" lets ranks share one card
+    dist_backend: Optional[str] = None
+    # Process grid (demfi_torch.parallel.make_grid): mesh_spatial
+    # consecutive ranks split each frame's rows (serving and evaluation);
+    # mesh_data groups of them share out scenes. The JAX package's mesh
+    # axes and defaults; here mesh_data must be process count /
+    # mesh_spatial (0: just that; 1 is taken too where mesh_spatial is 1).
+    mesh_data: int = 1
+    mesh_spatial: int = 1
 
     # ---- device ----
     # "cuda" (the default: a run without a card fails) or "cpu".

@@ -17,6 +17,15 @@
 //   writes in_img to ones[b, 0, q] where the caller asks for that plane.
 //   The output grid (Hq, Wq) follows coords, not the image: FGAC at
 //   rr > 0 samples a (3H, 3W) query grid.
+// Row offset (relative mode): query row y stands for row y + row0 of the
+// image's grid, so (px, py) = (x_q, y_q + row0) + coords[b, :, q]. A
+// card that holds rows [row0, row0 + Hq) of a frame split by rows
+// (--mesh_spatial) warps its rows out of the whole source frame with it:
+// the int row is converted and added once, as in the unsplit call, so the
+// result is the unsplit call's rows bit for bit. (Absolute coordinates
+// formed by the caller would give the same bits, but absolute mode has no
+// 0.999 mask and returns no in-image weight: the offset keeps one mode
+// for both.) Relative mode needs Wq == W and row0 + Hq <= H.
 // A call may consist of two halves (bwarp_pair: both directions' warps):
 // two image and two coordinate pointers of n batch elements each, written
 // to one output of 2n batch elements, so that the caller concatenates
@@ -123,7 +132,7 @@ bilinear_gather_kernel(const T* __restrict__ img_a,
                        const float* __restrict__ coords_b,
                        float* __restrict__ out, float* __restrict__ ones,
                        int n, int C, int H, int W, int Hq, int Wq, int cpb,
-                       int chunks, int relative) {
+                       int chunks, int relative, int row0) {
   const int y = blockIdx.y * kTY + threadIdx.y;
   const int x0 = blockIdx.x * (kTX * kPX) + threadIdx.x;
   if (y >= Hq || x0 >= Wq) return;
@@ -158,7 +167,7 @@ bilinear_gather_kernel(const T* __restrict__ img_a,
     float qx = px[j], qy = py[j];
     if (relative) {
       qx = __fadd_rn((float)(x0 + j * kTX), qx);
-      qy = __fadd_rn((float)y, qy);
+      qy = __fadd_rn((float)(y + row0), qy);
     }
     const float xf = floorf(qx);
     const float yf = floorf(qy);
@@ -212,15 +221,17 @@ bilinear_gather_kernel(const T* __restrict__ img_a,
 // both null. out [halves*n,C,Hq,Wq]; ones [halves*n,1,Hq,Wq] or null
 // (relative mode only: the in-image weight plane). The image T, the rest
 // float32; all contiguous, on one device; H*W and Hq*Wq below 2^31.
-// Launches on `stream` and returns cudaGetLastError().
+// row0: the image row of query row 0 (relative mode; 0 for a whole
+// frame). Launches on `stream` and returns cudaGetLastError().
 template <typename T>
 int launch_gather(const T* img_a, const T* img_b, const float* coords_a,
                   const float* coords_b, float* out, float* ones, int n,
                   int C, int H, int W, int Hq, int Wq, int relative,
-                  void* stream) {
+                  int row0, void* stream) {
   if (n <= 0 || Hq <= 0 || Wq <= 0) return (int)cudaSuccess;
   if ((img_b == nullptr) != (coords_b == nullptr) || H <= 0 || W <= 0 ||
-      (int64_t)H * W > INT32_MAX || (int64_t)Hq * Wq > INT32_MAX)
+      (int64_t)H * W > INT32_MAX || (int64_t)Hq * Wq > INT32_MAX ||
+      row0 < 0 || (relative && (Wq != W || (int64_t)row0 + Hq > H)))
     return (int)cudaErrorInvalidValue;
   const int64_t batch = (int64_t)n * (img_b != nullptr ? 2 : 1);
   const int64_t gx = (Wq + kTX * kPX - 1) / (kTX * kPX);
@@ -235,7 +246,7 @@ int launch_gather(const T* img_a, const T* img_b, const float* coords_a,
 #define DEMFI_GATHER(CT)                                                     \
   bilinear_gather_kernel<CT, T><<<grid, block, 0, s>>>(                      \
       img_a, img_b, coords_a, coords_b, out, ones, n, C, H, W, Hq, Wq, cpb,  \
-      chunks, relative)
+      chunks, relative, row0)
   switch (C) {
     case 1: DEMFI_GATHER(1); break;
     case 2: DEMFI_GATHER(2); break;
@@ -253,16 +264,16 @@ int launch_gather(const T* img_a, const T* img_b, const float* coords_a,
 extern "C" int demfi_bilinear_gather_f32(
     const float* img_a, const float* img_b, const float* coords_a,
     const float* coords_b, float* out, float* ones, int n, int C, int H,
-    int W, int Hq, int Wq, int relative, void* stream) {
+    int W, int Hq, int Wq, int relative, int row0, void* stream) {
   return launch_gather(img_a, img_b, coords_a, coords_b, out, ones, n, C, H,
-                       W, Hq, Wq, relative, stream);
+                       W, Hq, Wq, relative, row0, stream);
 }
 
 // bfloat16 image values (their 16 bits), float32 everything else.
 extern "C" int demfi_bilinear_gather_bf16(
     const uint16_t* img_a, const uint16_t* img_b, const float* coords_a,
     const float* coords_b, float* out, float* ones, int n, int C, int H,
-    int W, int Hq, int Wq, int relative, void* stream) {
+    int W, int Hq, int Wq, int relative, int row0, void* stream) {
   return launch_gather(img_a, img_b, coords_a, coords_b, out, ones, n, C, H,
-                       W, Hq, Wq, relative, stream);
+                       W, Hq, Wq, relative, row0, stream);
 }

@@ -74,6 +74,16 @@
 //    consider and the rows it skipped to row_stats[0] and [1] (for
 //    measurement; the hot path passes null).
 //
+// Rows of a split frame (--mesh_spatial): the output may be Ho rows of the
+// source, output row y being source row y + row_off. A card that holds
+// rows [r0, r1) of a frame passes the source rows [r0 - D - 1, r1 + D]
+// that exist in the frame (its rows and a halo from its neighbours) with
+// row_off = r0 - (first source row): every source pixel whose splat can
+// reach its rows is then present, a source row outside the frame is
+// absent as in the unsplit call, and each output pixel adds the same
+// terms in the same order, so its rows are the unsplit call's bit for
+// bit. A whole frame is Ho = H, row_off = 0.
+//
 // Guard: with `flag` not null the launch first reduces
 // any(|flo| > D - 1) to *flag on the device (fwarp_flag_kernel: a
 // grid-stride pass over flo, one atomicOr per block that found one). The
@@ -130,23 +140,26 @@ fwarp_shift_kernel(const float* __restrict__ img,
                    float* __restrict__ norm, const int* __restrict__ flag,
                    int* __restrict__ served,
                    unsigned long long* __restrict__ row_stats, int C, int H,
-                   int W, int D, int chunks) {
+                   int W, int Ho, int row_off, int D, int chunks) {
   // [tile_h(D)][tile_w(D)] target words, then tile_h(D) row ranges
   extern __shared__ __align__(16) int tile[];
+  // by0 and ys in source rows, y in output rows
   const int bx0 = blockIdx.x * kTileX;
-  const int by0 = blockIdx.y * kTileY;
+  const int by0 = blockIdx.y * kTileY + row_off;
   const int x = bx0 + threadIdx.x;
-  const int y = by0 + threadIdx.y;
+  const int y = blockIdx.y * kTileY + threadIdx.y;
+  const int ys = y + row_off;
   const int b = blockIdx.z / chunks;
   const int c0 = (blockIdx.z - b * chunks) * kChunk;
   const int nc = min(kChunk, C - c0);
-  const int hw = H * W;
-  const bool inside = x < W && y < H;
-  float* dst = out + ((int64_t)b * C + c0) * hw + (y * W + x);
-  float* dst_n = norm + (int64_t)b * hw + (y * W + x);
+  const int hw = H * W;        // a source plane
+  const int ohw = Ho * W;      // an output plane
+  const bool inside = x < W && y < Ho;
+  float* dst = out + ((int64_t)b * C + c0) * ohw + (y * W + x);
+  float* dst_n = norm + (int64_t)b * ohw + (y * W + x);
   if (flag != nullptr && *flag != 0) {   // the splat's call: clear for it
     if (!inside) return;
-    for (int c = 0; c < nc; ++c) dst[(int64_t)c * hw] = 0.0f;
+    for (int c = 0; c < nc; ++c) dst[(int64_t)c * ohw] = 0.0f;
     if (c0 == 0) *dst_n = 0.0f;
     return;
   }
@@ -234,7 +247,7 @@ fwarp_shift_kernel(const float* __restrict__ img,
     }
     const int dx_lo = max(-D, rg.z), dx_hi = min(D + 1, rg.w + 1);
     const int* row = tile + (ty - dy) * tw;
-    const int sy = y - dy;
+    const int sy = ys - dy;
     int key = dy * 65536 + dx_lo;
 #pragma unroll 2
     for (int dx = dx_lo; dx <= dx_hi; ++dx, ++key) {
@@ -253,16 +266,17 @@ fwarp_shift_kernel(const float* __restrict__ img,
     atomicAdd(row_stats + 1, (unsigned long long)skipped);
   }
   if (!inside) return;
-  for (int c = 0; c < nc; ++c) dst[(int64_t)c * hw] = acc[c];
+  for (int c = 0; c < nc; ++c) dst[(int64_t)c * ohw] = acc[c];
   if (c0 == 0) *dst_n = acc_n;
 }
 
 }  // namespace
 
-// img [B,C,H,W], flo [B,2,H,W], out [B,C,H,W], norm [B,1,H,W]: float32,
-// contiguous, on one device, H*W below 2^31. Every element of out and
-// norm is written: the stencil sum, or 0 where `flag` is given and comes
-// out 1. flag (one int32 on the device, written here), served (int32 on
+// img [B,C,H,W], flo [B,2,H,W], out [B,C,Ho,W], norm [B,1,Ho,W]:
+// float32, contiguous, on one device, H*W below 2^31; output row y is
+// source row y + row_off (Ho = H, row_off = 0 for a whole frame). Every
+// element of out and norm is written: the stencil sum, or 0 where `flag`
+// is given and comes out 1 (the flag reads all H source rows). flag (one int32 on the device, written here), served (int32 on
 // the device) and row_stats (two uint64 on the device): or null. 1 <= D <=
 // 107, the largest window whose tile fits shared memory. Launches on
 // `stream` and returns the first CUDA error.
@@ -270,10 +284,13 @@ extern "C" int demfi_fwarp_shift_f32(const float* img, const float* flo,
                                      float* out, float* norm, int* flag,
                                      int* served,
                                      unsigned long long* row_stats, int B,
-                                     int C, int H, int W, int D,
-                                     void* stream) {
-  if (B <= 0 || C <= 0 || H <= 0 || W <= 0) return (int)cudaSuccess;
-  if (D < 1 || (int64_t)H * W > INT32_MAX) return (int)cudaErrorInvalidValue;
+                                     int C, int H, int W, int Ho,
+                                     int row_off, int D, void* stream) {
+  if (B <= 0 || C <= 0 || H <= 0 || W <= 0 || Ho <= 0)
+    return (int)cudaSuccess;
+  if (D < 1 || (int64_t)H * W > INT32_MAX || row_off < 0 ||
+      (int64_t)row_off + Ho > H)
+    return (int)cudaErrorInvalidValue;
   const int64_t shared = shared_bytes(D);
   if (shared > kMaxSharedBytes) return (int)cudaErrorInvalidValue;
   if (shared > 48 * 1024) {
@@ -284,7 +301,7 @@ extern "C" int demfi_fwarp_shift_f32(const float* img, const float* flo,
   }
   const int chunks = (C + kChunk - 1) / kChunk;
   const int64_t gz = (int64_t)B * chunks;
-  const int64_t gy = (H + kTileY - 1) / kTileY;
+  const int64_t gy = (Ho + kTileY - 1) / kTileY;
   if (gz > 65535 || gy > 65535) return (int)cudaErrorInvalidConfiguration;
   const dim3 grid((unsigned)((W + kTileX - 1) / kTileX), (unsigned)gy,
                   (unsigned)gz);
@@ -300,6 +317,7 @@ extern "C" int demfi_fwarp_shift_f32(const float* img, const float* flo,
         flo, n, (float)(D - 1), flag);
   }
   fwarp_shift_kernel<<<grid, block, (size_t)shared, (cudaStream_t)stream>>>(
-      img, flo, out, norm, flag, served, row_stats, C, H, W, D, chunks);
+      img, flo, out, norm, flag, served, row_stats, C, H, W, Ho, row_off, D,
+      chunks);
   return (int)cudaGetLastError();
 }

@@ -13,6 +13,14 @@
 // base grid, not floor(grid + flo): the two differ when the float sum
 // rounds across an integer. Corners outside the image are dropped.
 //
+// Rows of a split frame (--mesh_spatial): the source may be Hs rows of an
+// output canvas of H rows, its row y being canvas row y + r0. A source
+// pixel then lands at (r0 + y) + r1, anywhere in the canvas; every rank
+// splats its rows into its own zeroed canvas and a sum over the ranks
+// (all_reduce) is the unsplit splat. The base row y + r0 is an int added
+// to floor(flo) in float, as in the unsplit call (Hs = H, r0 = 0), so
+// each pixel's targets and weights are the unsplit call's.
+//
 // Non-finite flows: a source pixel whose flow is NaN or infinite, or so
 // large that no corner lies in the image (1e9), is dropped, like a splat
 // that leaves the image. Its float compares fail before any conversion to
@@ -96,7 +104,7 @@ fwarp_splat_kernel(const float* __restrict__ img,
                    float* __restrict__ norm, const int* __restrict__ flag,
                    int* __restrict__ served,
                    unsigned long long* __restrict__ route_stats, int C, int H,
-                   int W, int vec) {
+                   int W, int Hs, int r0, int vec) {
   if (flag != nullptr && *flag == 0) return;
   extern __shared__ __align__(16) float box[];   // kBoxFloats
   __shared__ int part[kWarps][4];
@@ -107,9 +115,10 @@ fwarp_splat_kernel(const float* __restrict__ img,
   const int x = blockIdx.x * kTileX + threadIdx.x;
   const int y0 = blockIdx.y * kTileY + threadIdx.y;
   const int b = blockIdx.z;
-  const int hw = H * W;
-  const float* fx = flo + (int64_t)b * 2 * hw;   // along W
-  const float* fy = fx + hw;                     // along H
+  const int hw = H * W;        // an output plane
+  const int shw = Hs * W;      // a source plane
+  const float* fx = flo + (int64_t)b * 2 * shw;  // along W
+  const float* fy = fx + shw;                    // along H
 
   // per pixel the (0, 0) corner's target; a pixel is live if some corner
   // lies in the image. False for NaN, infinities and huge flows, tested
@@ -125,14 +134,14 @@ fwarp_splat_kernel(const float* __restrict__ img,
     live[j] = false;
     tr[j] = tc[j] = 0;
     fr[j] = fc[j] = 0.0f;
-    if (x < W && y < H) {
+    if (x < W && y < Hs) {
       const float dc = fx[y * W + x];
       const float dr = fy[y * W + x];
       const float c1 = floorf(dc);
       const float r1 = floorf(dr);
       fc[j] = __fsub_rn(dc, c1);
       fr[j] = __fsub_rn(dr, r1);
-      const float ftr = __fadd_rn((float)y, r1);
+      const float ftr = __fadd_rn((float)(y + r0), r1);
       const float ftc = __fadd_rn((float)x, c1);
       if (ftr >= -1.0f && ftr < (float)H && ftc >= -1.0f &&
           ftc < (float)W) {
@@ -176,7 +185,7 @@ fwarp_splat_kernel(const float* __restrict__ img,
   const int cb = max(clo, 0) & ~3;
   const int bw = ((min(chi + 1, W - 1) | 3) - cb) + 1;
   const int area = bh * bw;
-  const float* src = img + (int64_t)b * C * hw;
+  const float* src = img + (int64_t)b * C * shw;
 
   if ((int64_t)(C + 1) * area > kBoxFloats) {
     // the global route: every corner and channel its own atomic
@@ -198,7 +207,7 @@ fwarp_splat_kernel(const float* __restrict__ img,
         const int t = r * W + c;
         for (int ch = 0; ch < C; ++ch)
           atomicAdd(dst + (int64_t)ch * hw + t,
-                    __fmul_rn(src[(int64_t)ch * hw + p], wgt));
+                    __fmul_rn(src[(int64_t)ch * shw + p], wgt));
         atomicAdd(nrm + t, wgt);
       }
     }
@@ -229,7 +238,7 @@ fwarp_splat_kernel(const float* __restrict__ img,
                     ? -1 : (r - rb) * bw + (c - cb);
     }
     for (int ch = 0; ch < C; ++ch) {
-      const float v = src[(int64_t)ch * hw + p];
+      const float v = src[(int64_t)ch * shw + p];
       float* plane = box + ch * area;
 #pragma unroll
       for (int k = 0; k < 4; ++k)
@@ -272,18 +281,23 @@ fwarp_splat_kernel(const float* __restrict__ img,
 
 }  // namespace
 
-// img [B,C,H,W], flo [B,2,H,W], out [B,C,H,W] and norm [B,1,H,W] zeroed by
-// the caller: float32, contiguous, on one device, H*W below 2^31. flag and
-// served: int32 on the device, or null; route_stats: two uint64 on the
-// device, or null. Launches on `stream` and returns cudaGetLastError().
+// img [B,C,Hs,W], flo [B,2,Hs,W], out [B,C,H,W] and norm [B,1,H,W] zeroed
+// by the caller: float32, contiguous, on one device, H*W and Hs*W below
+// 2^31; source row y is output row y + r0 (Hs = H and r0 = 0 for a whole
+// frame). flag and served: int32 on the device, or null; route_stats: two
+// uint64 on the device, or null. Launches on `stream` and returns
+// cudaGetLastError().
 extern "C" int demfi_fwarp_splat_f32(const float* img, const float* flo,
                                      float* out, float* norm,
                                      const int* flag, int* served,
                                      unsigned long long* route_stats, int B,
-                                     int C, int H, int W, void* stream) {
-  if (B <= 0 || H <= 0 || W <= 0) return (int)cudaSuccess;
-  if (C < 0 || (int64_t)H * W > INT32_MAX) return (int)cudaErrorInvalidValue;
-  const int64_t gy = (H + kTileY - 1) / kTileY;
+                                     int C, int H, int W, int Hs, int r0,
+                                     void* stream) {
+  if (B <= 0 || H <= 0 || W <= 0 || Hs <= 0) return (int)cudaSuccess;
+  if (C < 0 || (int64_t)H * W > INT32_MAX || (int64_t)Hs * W > INT32_MAX ||
+      r0 < 0 || (int64_t)r0 + Hs > H)
+    return (int)cudaErrorInvalidValue;
+  const int64_t gy = (Hs + kTileY - 1) / kTileY;
   if (B > 65535 || gy > 65535) return (int)cudaErrorInvalidConfiguration;
   const int vec = W % 4 == 0 && (uintptr_t)out % 16 == 0 &&
                   (uintptr_t)norm % 16 == 0;
@@ -298,6 +312,6 @@ extern "C" int demfi_fwarp_splat_f32(const float* img, const float* flo,
                   (unsigned)B);
   fwarp_splat_kernel<<<grid, dim3(kTileX, kRows), kShared,
                        (cudaStream_t)stream>>>(
-      img, flo, out, norm, flag, served, route_stats, C, H, W, vec);
+      img, flo, out, norm, flag, served, route_stats, C, H, W, Hs, r0, vec);
   return (int)cudaGetLastError();
 }

@@ -25,7 +25,7 @@ from demfi_torch.data.datasets import (CustomDataset, EvalDataset, _imread,
 from demfi_torch.data.imageio import imwrite
 from demfi_torch.infer.engine import InferenceEngine
 from demfi_torch.metrics import eval_pair_hwc, to_png_uint8
-from demfi_torch.parallel import allgather_sums
+from demfi_torch.parallel import Grid, allgather_sums
 from demfi_torch.utils.meters import AverageMeter, ProgressPrinter
 
 
@@ -167,6 +167,7 @@ def evaluate(cfg: DeMFIConfig, engine: InferenceEngine, multiple: int,
              test_patch: Tuple[int, int] = (1, 1),
              window_batch: int = 1,
              shard: Tuple[int, int] = (0, 1),
+             grid: Optional[Grid] = None,
              ) -> Tuple[float, float, float, float, float, str]:
     """GT evaluation (reference ``test``). Returns (loss, intp_PSNR,
     intp_SSIM, deblur_PSNR, deblur_SSIM, save_path); the call's counts
@@ -177,13 +178,23 @@ def evaluate(cfg: DeMFIConfig, engine: InferenceEngine, multiple: int,
     of that many (``demfi_torch.parallel.init_distributed``): the five
     headline meters and the per-slot ones are then summed across the
     processes as float64 (sum, count), so every process prints and
-    returns what one process would."""
+    returns what one process would.
+
+    ``grid`` (``demfi_torch.parallel.make_grid``; it replaces ``shard``):
+    whole scenes go round-robin to its data groups, the ranks of a group
+    run the same windows through an engine of that grid (each its rows of
+    every frame), and only the group's rank 0 computes metrics and
+    writes PNGs; the meters are summed across the groups' rank 0s."""
     if multiple not in (2, 8):
         raise ValueError("phase test supports multiple in {2, 8}")
-    if shard[1] > 1 and not (dist.is_initialized()
-                             and dist.get_world_size() == shard[1]):
+    world, leader = shard[1], True
+    if grid is not None:
+        shard = (grid.data_index, grid.data)
+        world, leader = grid.world, grid.leader
+    if world > 1 and not (dist.is_initialized()
+                          and dist.get_world_size() == world):
         raise RuntimeError(f"evaluate with shard={shard} needs a process "
-                           f"group of {shard[1]} processes "
+                           f"group of {world} processes "
                            f"(demfi_torch.parallel.init_distributed)")
     ds = EvalDataset(cfg.test_data_path, multiple, cfg.t_step_size,
                      center_patch=center_patch, test_type=test_type)
@@ -218,7 +229,8 @@ def evaluate(cfg: DeMFIConfig, engine: InferenceEngine, multiple: int,
     else:
         save_root = os.path.join(cfg.test_img_dir, cfg.model_dir,
                                  f"epoch_{str(epoch).zfill(5)}{post_fix}")
-    os.makedirs(save_root, exist_ok=True)
+    if leader:
+        os.makedirs(save_root, exist_ok=True)
 
     prev_scene = None
     last_s1 = None  # (psnr_p, ssim_p, psnr_f, ssim_f) of trailing S1
@@ -308,6 +320,8 @@ def evaluate(cfg: DeMFIConfig, engine: InferenceEngine, multiple: int,
 
     for w, ((blur, s0_gt, s1_gt, sts_gt, items), res) in enumerate(
             _lookahead(iter_results())):
+        if not leader:      # its group's rank 0 keeps the books
+            continue
         if items[0].scene != prev_scene:
             if prev_scene is not None:
                 finalize_scene()
@@ -380,9 +394,10 @@ def evaluate(cfg: DeMFIConfig, engine: InferenceEngine, multiple: int,
             writer.add_scalar("intp_testPSNR", intp_psnr["final"].val, tb)
             writer.add_scalar("deblur_testPSNR", deblur_psnr["final"].val, tb)
 
-    finalize_scene()
+    if leader:
+        finalize_scene()
 
-    if shard[1] > 1:
+    if world > 1:
         meters = [losses, intp_psnr["final"], intp_ssim["final"],
                   deblur_psnr["final"], deblur_ssim["final"]]
         meters += [total[k].psnr[i]
@@ -397,7 +412,7 @@ def evaluate(cfg: DeMFIConfig, engine: InferenceEngine, multiple: int,
             m.avg = float(s_ / max(c_, 1))
         print(f"[eval shard {shard[0]}/{shard[1]}] aggregated over "
               f"{int(summed[len(meters) + 1])} interp samples across "
-              f"processes")
+              f"{'data groups' if grid is not None else 'processes'}")
 
     n_print = n_windows
     print("-" * 40 + f" x{multiple} MFI results " + "-" * 40)
@@ -425,13 +440,19 @@ def evaluate(cfg: DeMFIConfig, engine: InferenceEngine, multiple: int,
 def evaluate_custom(cfg: DeMFIConfig, engine: InferenceEngine,
                     multiple: int,
                     test_patch: Tuple[int, int] = (1, 1),
-                    shard: Tuple[int, int] = (0, 1)) -> None:
+                    shard: Tuple[int, int] = (0, 1),
+                    grid: Optional[Grid] = None) -> None:
     """GT-free interpolation of user scenes (reference ``test_custom``):
     writes S0/S1 once per window plus every St into
     <custom_path>/<scene>_sharply_interpolated_xM/.
 
     ``shard=(process_id, process_count)`` assigns whole scenes
-    round-robin for multi-process runs (each process writes its own)."""
+    round-robin for multi-process runs (each process writes its own);
+    ``grid`` replaces it as for :func:`evaluate` (a data group's rank 0
+    writes)."""
+    leader = True
+    if grid is not None:
+        shard, leader = (grid.data_index, grid.data), grid.leader
     ds = CustomDataset(cfg.custom_path, multiple)
     m1 = multiple - 1
     n_windows = len(ds) // m1
@@ -446,6 +467,8 @@ def evaluate_custom(cfg: DeMFIConfig, engine: InferenceEngine,
         res = engine.forward_window(blur[None], ts, test_patch=test_patch,
                                     patch_boundary=cfg.patch_boundary)
         batch_time.update(time.time() - t0)
+        if not leader:
+            continue
 
         out_dir = os.path.join(
             cfg.custom_path,

@@ -21,6 +21,18 @@ The public surface keeps the JAX engine's layout: frames come in as numpy
 ``WindowResult`` fields come out as NHWC numpy with a leading t axis.
 Inside, the model works on NCHW tensors.
 
+5. **Rows across cards** (``grid`` with a spatial axis, ``--mesh_spatial
+   S``): the S ranks of a data group each compute the rows [s H / S,
+   (s + 1) H / S) of every padded frame (``DeMFINet.rows``), the whole
+   frame's forward and not a tiled approximation, as XLA SPMD computes
+   the JAX engine on its ('data', 'spatial') mesh; every output is
+   gathered to every rank of the group (``allgather_rows``). A frame
+   whose padded height S does not divide runs whole on every rank, as
+   the JAX engine leaves it unsharded (printed once); one that S divides
+   but whose rows the network's total stride does not is refused. The
+   t-chunk budget counts the rank's rows, and the group agrees on the
+   smallest. The tiled ``forward_window`` splits each tile's rows.
+
 Float32 parity: the engine turns TF32 off for cuDNN convolutions and
 cuBLAS matmuls, process-wide (:func:`demfi_torch.disable_tf32`, which
 the train step calls too). A bfloat16 model's results reach the host as
@@ -34,9 +46,13 @@ from typing import List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from demfi_torch import disable_tf32, nchw_to_nhwc, resolve_device
 from demfi_torch.models.demfi import DeMFINet
+from demfi_torch.parallel.distributed import _collective_device
+from demfi_torch.parallel.grid import Grid, RowShard
+from demfi_torch.parallel.halo import allgather_rows
 
 # Device bytes per pixel-instant of a window batch, by compute dtype: the
 # peak memory allocated above the weights while serving one 352x640 x8
@@ -158,7 +174,7 @@ class InferenceEngine:
 
     def __init__(self, model: DeMFINet, num_update: int,
                  t_chunk: Optional[int] = None, fetch: str = "full",
-                 device=None):
+                 device=None, grid: Optional[Grid] = None):
         """model: a DeMFINet (moved to ``device``, the GPU unless the
         caller passes device="cpu").
 
@@ -167,7 +183,11 @@ class InferenceEngine:
 
         fetch: which WindowResult tensors are copied to the host. "full"
         copies every field; "images" only the six output frames (primes
-        and last-iteration finals) and zero-fills the rest host-side."""
+        and last-iteration finals) and zero-fills the rest host-side.
+
+        grid: the process grid (``demfi_torch.parallel.make_grid``);
+        with a spatial axis each rank computes its rows of every frame.
+        None: one process computes whole frames."""
         if fetch not in ("full", "images"):
             raise ValueError(f"fetch must be 'full' or 'images', got {fetch!r}")
         self.device = resolve_device(device)
@@ -185,21 +205,62 @@ class InferenceEngine:
         # it bounds the device's busy time from above.
         self.dispatched_windows = 0
         self.dispatched_stream_seconds = 0.0
+        self.grid = grid or Grid()
+        self._whole_heights: set = set()   # heights run unsplit, printed
+        # ranks of the spatial group on this card (gloo ranks may share
+        # one): they share its free memory
+        self._card_ranks = 1
+        if self.grid.spatial > 1 and self.device.type == "cuda":
+            mine = torch.cuda.current_device() if self.device.index is None \
+                else self.device.index
+            t = torch.tensor([mine], dtype=torch.int64,
+                             device=_collective_device())
+            parts = [torch.empty_like(t) for _ in range(self.grid.spatial)]
+            dist.all_gather(parts, t, group=self.grid.group)
+            self._card_ranks = sum(int(p.item()) == mine for p in parts)
+
+    def shard(self, h: int) -> Optional[RowShard]:
+        """This rank's rows of a padded frame of h rows, or None where
+        it computes whole frames: no spatial axis, or h not a multiple of
+        it (printed once per height)."""
+        shard = self.grid.shard(h)
+        if (shard is None and self.grid.spatial > 1
+                and h not in self._whole_heights):
+            self._whole_heights.add(h)
+            print(f"[mesh_spatial {self.grid.spatial}] a {h}-row padded "
+                  f"frame does not split into {self.grid.spatial} equal "
+                  f"row blocks: every rank of the group runs it whole")
+        return shard
+
+    def _agreed_min(self, value: Optional[int]) -> Optional[int]:
+        """The smallest of a value (None: no cap) over the ranks of this
+        rank's spatial group, so that all of them batch alike."""
+        if self.grid.spatial <= 1:
+            return value
+        big = 2 ** 62
+        t = torch.tensor([big if value is None else value], dtype=torch.int64,
+                         device=_collective_device())
+        dist.all_reduce(t, op=dist.ReduceOp.MIN, group=self.grid.group)
+        v = int(t.item())
+        return None if v == big else v
 
     # -------------------------------------------------------------- core
     @torch.inference_mode()
-    def _forward(self, frames: torch.Tensor, ts: torch.Tensor) -> dict:
+    def _forward(self, frames: torch.Tensor, ts: torch.Tensor,
+                 shard: Optional[RowShard] = None) -> dict:
         """frames [N,4,H,W,3], ts [N,M] (host tensors; pinned ones are
         copied without the host waiting for the stream) -> dict of NHWC
         device tensors with batch N*M: the fields that ``fetch``
-        selects."""
+        selects. With a shard, frames are its rows, and the fields are
+        gathered from the group's ranks."""
         n, m = ts.shape
         model = self.model
         x = frames.to(self.device, non_blocking=True).permute(
             0, 1, 4, 2, 3).contiguous()
         t = ts.to(self.device, non_blocking=True).reshape(n * m, 1)
-        ctx = model.extract(x).repeat(m)
-        out = model.synthesize(ctx, t, self.num_update)
+        with model.rows(shard):
+            ctx = model.extract(x).repeat(m)
+            out = model.synthesize(ctx, t, self.num_update)
         last = out.s0_final.shape[0] > 0
         sel = dict(
             s0_prime=out.s0_prime, s1_prime=out.s1_prime,
@@ -224,7 +285,15 @@ class InferenceEngine:
                     flow_01=vflows[0], flow_10=vflows[1])
         # float32 on the device, so the host gets float32 (a no-op for a
         # float32 model)
-        return {k: nchw_to_nhwc(v).float() for k, v in sel.items()}
+        sel = {k: v.float() for k, v in sel.items()}
+        if shard is not None:
+            # every field's rows from every rank: one gather of all of them
+            names = list(sel)
+            whole = allgather_rows(torch.cat([sel[k] for k in names], dim=1),
+                                   shard)
+            parts = whole.split([sel[k].shape[1] for k in names], dim=1)
+            sel = dict(zip(names, parts))
+        return {k: nchw_to_nhwc(v) for k, v in sel.items()}
 
     @staticmethod
     def _results(out: dict, n: int, m: int) -> List[WindowResult]:
@@ -239,11 +308,14 @@ class InferenceEngine:
                                 for k in _FIELDS})
                 for i in range(n)]
 
-    @staticmethod
-    def _host_inputs(frames: np.ndarray, ts: np.ndarray
-                     ) -> Tuple[torch.Tensor, torch.Tensor]:
+    def _host_inputs(self, frames: np.ndarray, ts: np.ndarray):
+        """(frames, ts, shard): the rows of frames this rank computes (all
+        of them without a shard), as contiguous host tensors."""
+        shard = self.shard(frames.shape[2])
+        if shard is not None:
+            frames = frames[:, :, shard.r0:shard.r1]
         return (torch.from_numpy(np.ascontiguousarray(frames, np.float32)),
-                torch.from_numpy(np.ascontiguousarray(ts, np.float32)))
+                torch.from_numpy(np.ascontiguousarray(ts, np.float32)), shard)
 
     def _run(self, frames: np.ndarray, ts: np.ndarray) -> List[WindowResult]:
         """frames [N,4,H,W,3], ts [N,M] -> per-window results."""
@@ -268,9 +340,9 @@ class InferenceEngine:
         every field). On the CPU the forward runs here and ``_fetch``
         hands it back."""
         n, m = ts.shape
-        frames_t, ts_t = self._host_inputs(frames, ts)
+        frames_t, ts_t, shard = self._host_inputs(frames, ts)
         if self._stream is None:
-            return _Pending(self._forward(frames_t, ts_t), n, m)
+            return _Pending(self._forward(frames_t, ts_t, shard), n, m)
         self._stream.wait_stream(torch.cuda.current_stream(self.device))
         with torch.cuda.stream(self._stream):
             start = torch.cuda.Event(enable_timing=True)
@@ -278,7 +350,7 @@ class InferenceEngine:
             start.record()
             host = {}
             for k, v in self._forward(frames_t.pin_memory(),
-                                      ts_t.pin_memory()).items():
+                                      ts_t.pin_memory(), shard).items():
                 host[k] = torch.empty(v.shape, dtype=v.dtype,
                                       pin_memory=True)
                 host[k].copy_(v, non_blocking=True)
@@ -303,24 +375,33 @@ class InferenceEngine:
         free, _ = torch.cuda.mem_get_info(self.device)
         free += (torch.cuda.memory_reserved(self.device)
                  - torch.cuda.memory_allocated(self.device))
-        return int(free * _MEMORY_SHARE
+        return int(free * _MEMORY_SHARE / self._card_ranks
                    / BYTES_PER_PIXEL_INSTANT[self.model.compute_dtype])
+
+    def _local_rows(self, h: int) -> int:
+        """Rows of a frame of h rows (padded) that this rank computes."""
+        shard = self.grid.shard(h)
+        return h if shard is None else shard.rows
 
     def _effective_t_chunk(self, h, w, m, test_patch=(1, 1), n_windows=1):
         """User cap if given, else the memory-derived one (per-tile pixels
-        when the tiled path will split the frame; N windows multiply the
-        pixels per instant by N). Returns 0 when even a single instant of
-        the window batch exceeds the budget, None for no chunking."""
+        when the tiled path will split the frame, per rank where the rows
+        are split; N windows multiply the pixels per instant by N).
+        Returns 0 when even a single instant of the window batch exceeds
+        the budget, None for no chunking."""
         if self.t_chunk:
             return self.t_chunk
         budget = self._pixel_instant_budget()
         if budget is None:
             return None
-        px = (h // test_patch[0]) * (w // test_patch[1]) * n_windows
+        px = (self._local_rows(h) // test_patch[0]
+              * (w // test_patch[1]) * n_windows)
         cap = budget // max(px, 1)
         if cap < 1:
-            return 0 if n_windows > 1 else 1
-        return cap if cap < m else None
+            cap = 0 if n_windows > 1 else 1
+        elif cap >= m:
+            cap = None
+        return self._agreed_min(cap)
 
     def forward_windows(self, frames: np.ndarray, ts: np.ndarray,
                         patch_boundary: int = 32) -> List[WindowResult]:
@@ -423,8 +504,10 @@ class InferenceEngine:
         for shape, group in groups.items():
             # bound the group batch by the memory budget too: tiles x
             # instants x tile pixels is the real footprint
-            per_call = (len(group) if budget is None else
-                        max(1, budget // max(m * shape[2] * shape[3], 1)))
+            per_call = self._agreed_min(
+                len(group) if budget is None else
+                max(1, budget // max(m * self._local_rows(shape[2])
+                                     * shape[3], 1)))
             results: List[WindowResult] = []
             for i in range(0, len(group), per_call):
                 sub = group[i:i + per_call]

@@ -23,6 +23,15 @@ Data parallelism: ``--coordinator_address HOST:PORT --num_processes P
 model in ``DistributedDataParallel``, each process loading its share of
 every global batch; ``--phase test`` and ``test_custom`` give each
 process whole scenes, round-robin, and sum the meters across them.
+``--dist_backend gloo`` lets processes share one card.
+
+Rows across cards (``--phase test|test_custom --mesh_spatial S``, the
+JAX package's mesh flags): the P processes form P / S data groups of S
+consecutive ranks; a group shares out scenes as one process does, and
+its ranks each compute S-th of every frame's rows, exactly
+(``demfi_torch.parallel.make_grid``). ``--mesh_data`` must be P / S, or
+0 for that (its default, 1, is taken too where S = 1). Training's spatial axis is a later slice:
+``--phase train --mesh_spatial S`` with S > 1 is refused.
 """
 from __future__ import annotations
 
@@ -121,6 +130,18 @@ def parse_args(argv=None) -> DeMFIConfig:
                         "card (or CPU worker) joined by torch.distributed")
     p.add_argument("--num_processes", type=int, default=None)
     p.add_argument("--process_id", type=int, default=None)
+    p.add_argument("--dist_backend", type=str, default=d.dist_backend,
+                   choices=["nccl", "gloo"],
+                   help="the process group's backend: NCCL on cards and "
+                        "gloo on the CPU by default; gloo lets processes "
+                        "share one card")
+    p.add_argument("--mesh_data", type=int, default=d.mesh_data,
+                   help="data groups: process count / --mesh_spatial "
+                        "(0: just that; the default 1 is taken too "
+                        "without --mesh_spatial)")
+    p.add_argument("--mesh_spatial", type=int, default=d.mesh_spatial,
+                   help="processes of a data group that split each "
+                        "frame's rows (--phase test and test_custom)")
     p.add_argument("--auto_resume", action="store_true",
                    help="resume from the latest checkpoint if one exists")
     p.add_argument("--seed", type=int, default=d.seed)
@@ -145,6 +166,14 @@ def parse_args(argv=None) -> DeMFIConfig:
                 "architecture is 3-channel; only --img_ch 3 is valid")
     if a.fwarp_shift_d < 0:
         p.error("--fwarp_shift_d must be >= 0")
+    if a.mesh_spatial < 1 or a.mesh_data < 0:
+        p.error("--mesh_spatial must be >= 1 and --mesh_data >= 0")
+    if a.phase == "train" and a.mesh_spatial > 1:
+        p.error(f"--phase train --mesh_spatial {a.mesh_spatial}: training's "
+                f"spatial axis is a later slice of the port (it needs a "
+                f"backward for the halo exchange and the row-offset "
+                f"warps); --mesh_spatial serves --phase test and "
+                f"test_custom")
 
     fields = {f.name for f in dataclasses.fields(DeMFIConfig)}
     kwargs = {k: v for k, v in vars(a).items() if k in fields}
@@ -209,7 +238,7 @@ def _join(cfg: DeMFIConfig) -> Tuple[DeMFIConfig, int, int]:
 
     pid, pcount = init_distributed(cfg.coordinator_address,
                                    cfg.num_processes, cfg.process_id,
-                                   cfg.device)
+                                   cfg.device, cfg.dist_backend)
     if dist.is_initialized():
         cfg = dataclasses.replace(cfg, device=str(rank_device(cfg.device,
                                                               pid)))
@@ -249,13 +278,15 @@ def _train(cfg: DeMFIConfig, pid: int, pcount: int) -> dict:
     from demfi_torch.infer import InferenceEngine
     from demfi_torch.infer.driver import evaluate
     from demfi_torch.models import make_model
-    from demfi_torch.parallel import broadcast_object, data_parallel
+    from demfi_torch.parallel import (broadcast_object, data_parallel,
+                                      make_grid)
     from demfi_torch.train import (create_train_state, make_train_step,
                                    set_epoch)
     from demfi_torch.utils.meters import (AverageMeter, ProgressPrinter,
                                           model_summary)
     from demfi_torch.utils.profiling import StepTimer
 
+    make_grid(cfg.mesh_data, 1)       # refuses a --mesh_data that is not P
     is_main = pid == 0
     em = AsyncExperimentManager(cfg) if is_main else None
     model = make_model(cfg, device=cfg.device)
@@ -402,32 +433,41 @@ def _load_eval_model(cfg: DeMFIConfig):
 
 
 def _eval_engine(cfg: DeMFIConfig):
+    """The evaluation engine on the process grid the flags name, and the
+    grid."""
     from demfi_torch.infer import InferenceEngine
+    from demfi_torch.parallel import make_grid
 
+    grid = make_grid(cfg.mesh_data, cfg.mesh_spatial)
+    if grid.spatial > 1:
+        print(f"mesh: {grid.data} data group(s) x {grid.spatial} ranks "
+              f"splitting rows; this is rank {grid.spatial_index} of data "
+              f"group {grid.data_index}")
     return InferenceEngine(_load_eval_model(cfg), cfg.N_tst,
                            t_chunk=cfg.t_chunk or None,
                            fetch="full" if cfg.visualization_flag
-                           else "images", device=cfg.device)
+                           else "images", device=cfg.device,
+                           grid=grid), grid
 
 
 def run_test(cfg: DeMFIConfig
              ) -> Tuple[float, float, float, float, float, str]:
-    """``--phase test``; in a process group each process evaluates whole
-    scenes, round-robin, and the meters are summed across processes."""
+    """``--phase test``; in a process group each data group (each
+    process, without --mesh_spatial) evaluates whole scenes,
+    round-robin, and the meters are summed across the groups."""
     from demfi_torch.infer.driver import evaluate
     from demfi_torch.parallel import destroy_distributed
 
-    cfg, pid, pcount = _join(cfg)
+    cfg, _, _ = _join(cfg)
     try:
-        engine = _eval_engine(cfg)
+        engine, grid = _eval_engine(cfg)
         print(f"Evaluating on {cfg.test_data_path} with multiple = "
               f"{cfg.multiple_MFI} with full resolution")
         return evaluate(cfg, engine, multiple=cfg.multiple_MFI,
                         epoch=cfg.epochs - 1, test_patch=cfg.test_patch,
                         post_fix=f"_final_x{cfg.multiple_MFI}_full_"
                                  f"resolution_Ntst{cfg.N_tst}",
-                        window_batch=cfg.eval_window_batch,
-                        shard=(pid, pcount))
+                        window_batch=cfg.eval_window_batch, grid=grid)
     finally:
         destroy_distributed()
 
@@ -438,13 +478,13 @@ def run_test_custom(cfg: DeMFIConfig) -> None:
     from demfi_torch.infer.driver import evaluate_custom
     from demfi_torch.parallel import destroy_distributed
 
-    cfg, pid, pcount = _join(cfg)
+    cfg, _, _ = _join(cfg)
     try:
-        engine = _eval_engine(cfg)
+        engine, grid = _eval_engine(cfg)
         print(f"Evaluating on {cfg.custom_path} with multiple = "
               f"{cfg.multiple_MFI}")
         evaluate_custom(cfg, engine, multiple=cfg.multiple_MFI,
-                        test_patch=cfg.test_patch, shard=(pid, pcount))
+                        test_patch=cfg.test_patch, grid=grid)
     finally:
         destroy_distributed()
 

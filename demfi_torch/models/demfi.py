@@ -24,10 +24,27 @@ float32 weights and return float32, and the blends that follow run in
 float32 and are cast back only where the JAX model casts them. Pieces
 are cast before each ``torch.cat`` where the JAX model concatenates cast
 operands (``torch.cat`` promotes a mixed list to float32).
+
+Rows of a split frame (``--mesh_spatial``, :meth:`DeMFINet.rows`): the
+model may run on rows [r0, r1) of a frame whose other rows other ranks
+hold (a :class:`~demfi_torch.parallel.RowShard`), and its outputs are
+then those rows of the whole frame's, which is what XLA SPMD computes
+for the JAX model on a ('data', 'spatial') mesh. Every convolution first
+takes the rows its kernel reads beyond the shard from the neighbours
+(``exchange_rows``: zeros at the frame's edges, where its padding reads
+zeros) and convolves them with no row padding; the warps sample the
+whole source frame (``demfi_torch.ops.warp``); the min-max
+normalisations reduce over the whole frame. Space-to-depth, the pixel
+shuffle and the nearest up-sampling are row-local when the shard's rows
+and first row are multiples of the network's total stride
+(:attr:`DeMFINet.row_stride`). Without a shard (the attribute ``shard``
+is None on every module) the code is the unsplit model's.
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
+import math
 from typing import Dict, List, Optional, Tuple
 
 import torch
@@ -42,6 +59,8 @@ from demfi_torch.ops import (
     fgac_correlate,
     space_to_depth,
 )
+from demfi_torch.parallel.halo import (allreduce_max, allreduce_min,
+                                       exchange_rows)
 
 
 COMPUTE_DTYPES: Dict[str, torch.dtype] = {"float32": torch.float32,
@@ -73,15 +92,32 @@ def _conv_in(dt: torch.dtype, conv, x: torch.Tensor, weight: torch.Tensor,
     return conv(x.to(dt), weight.to(dt), None) + bias.to(dt)[:, None, None]
 
 
+def _rows_conv(shard, stride, padding):
+    """A convolution ``(x, weight, bias) -> y`` over a shard's rows: the
+    rows its kernel reads above and below them from the neighbours
+    (output row j reads input rows stride j - pad ... stride j - pad +
+    k - 1), then no row padding. Equal to the unsplit convolution's rows
+    when the shard's rows and first row are multiples of the stride."""
+    def conv(x, weight, bias):
+        k = weight.shape[-2]
+        above = padding[0]
+        x = exchange_rows(x, above, k - stride[0] - above, shard)
+        return F.conv2d(x, weight, bias, stride, (0, padding[1]))
+    return conv
+
+
 class _Conv(nn.Conv2d):
     """nn.Conv2d in the model's compute dtype (:func:`_conv_in`); the
-    parameters stay float32."""
+    parameters stay float32. Over a shard's rows where ``shard`` is
+    set."""
 
     compute_dtype = torch.float32     # DeMFINet sets it on each instance
+    shard = None                      # DeMFINet.rows sets it
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return _conv_in(self.compute_dtype, self._conv_forward, x,
-                        self.weight, self.bias)
+        conv = self._conv_forward if self.shard is None else _rows_conv(
+            self.shard, self.stride, self.padding)
+        return _conv_in(self.compute_dtype, conv, x, self.weight, self.bias)
 
 
 def _conv(cin: int, cout: int, k=3, stride: int = 1, pad=None) -> _Conv:
@@ -97,14 +133,17 @@ class _Conv3dT1(nn.Conv3d):
     with the frames folded into the batch, in the compute dtype."""
 
     compute_dtype = torch.float32
+    shard = None
 
     def __init__(self, cin: int, cout: int):
         super().__init__(cin, cout, (1, 3, 3), padding=(0, 1, 1), bias=True)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return _conv_in(self.compute_dtype,
-                        lambda i, k, b: F.conv2d(i, k, b, padding=1), x,
-                        self.weight[:, :, 0], self.bias)
+        conv = ((lambda i, k, b: F.conv2d(i, k, b, padding=1))
+                if self.shard is None
+                else _rows_conv(self.shard, (1, 1), (1, 1)))
+        return _conv_in(self.compute_dtype, conv, x, self.weight[:, :, 0],
+                        self.bias)
 
 
 def _sigmoid(x: torch.Tensor) -> torch.Tensor:
@@ -118,12 +157,17 @@ def _sigmoid(x: torch.Tensor) -> torch.Tensor:
     return 1.0 / (1.0 + torch.exp(-x))
 
 
-def _minmax_norm(v: torch.Tensor) -> torch.Tensor:
-    """Per-sample min-max normalisation over C, H, W. The max may be 0,
-    and the result is then NaN, as in the reference."""
+def _minmax_norm(v: torch.Tensor, shard=None) -> torch.Tensor:
+    """Per-sample min-max normalisation over C, H, W (over the whole
+    frame's rows where v holds a shard's). The max may be 0, and the
+    result is then NaN, as in the reference."""
     lo = torch.amin(v, dim=(1, 2, 3), keepdim=True)
+    if shard is not None:
+        lo = allreduce_min(lo, shard)
     v = v - lo
     hi = torch.amax(v, dim=(1, 2, 3), keepdim=True)
+    if shard is not None:
+        hi = allreduce_max(hi, shard)
     return v / hi
 
 
@@ -134,6 +178,24 @@ def _t_blend(a: torch.Tensor, b: torch.Tensor, occ_0: torch.Tensor,
     num = (1.0 - t) * occ_0 * a + t * occ_1 * b
     den = (1.0 - t) * occ_0 + t * occ_1
     return num / den
+
+
+@contextlib.contextmanager
+def rows_of(module: nn.Module, shard):
+    """Within the block every convolution, FGAC and the model under
+    ``module`` (itself included) compute on ``shard``'s rows (a
+    :class:`~demfi_torch.parallel.RowShard`, or None for whole frames).
+    :meth:`DeMFINet.rows` checks the shard against the model's stride
+    first."""
+    mods = [m for m in module.modules()
+            if isinstance(m, (DeMFINet, _Conv, _Conv3dT1, FGAC, SepConvGRU))]
+    for m in mods:
+        m.shard = shard
+    try:
+        yield module
+    finally:
+        for m in mods:
+            m.shard = None
 
 
 def _nearest_up2(x: torch.Tensor) -> torch.Tensor:
@@ -230,6 +292,7 @@ class FGAC(nn.Module):
     dtype."""
 
     compute_dtype = torch.float32
+    shard = None
 
     def __init__(self, nf: int, rr: int = 0, sr: int = 0, viz: bool = False):
         super().__init__()
@@ -244,21 +307,21 @@ class FGAC(nn.Module):
         ref_k = self.conv_ref_k(ref)
         source_k = self.conv_source_k(source)
         fac = fgac_correlate(ref_k.float(), source_k.float(),
-                             flow_s2r.float(), rr=self.rr,
-                             sr=self.sr).to(self.compute_dtype)
+                             flow_s2r.float(), rr=self.rr, sr=self.sr,
+                             shard=self.shard).to(self.compute_dtype)
         e_s = self.fusion(fac)
         w = _sigmoid(self.w_gen_2(F.relu(self.w_gen(
             torch.cat([source, e_s], dim=1)))))
         bolstered = w * source + (1.0 - w) * e_s
         diff = _minmax_norm(torch.mean(torch.abs(bolstered - source), dim=1,
-                                       keepdim=True))
+                                       keepdim=True), self.shard)
         if self.viz:
             # min-max-normalised mean-|.| single-channel views of the FGAC
             # internals: source key, initial ref key, aggregated E_s,
             # bolstered ("FCW")
             def norm1(v):
                 return _minmax_norm(torch.mean(torch.abs(v.float()), dim=1,
-                                               keepdim=True))
+                                               keepdim=True), self.shard)
             extras = (norm1(source), norm1(ref_k), norm1(e_s),
                       norm1(bolstered))
         else:
@@ -353,6 +416,7 @@ class SepConvGRU(nn.Module):
     compute dtype (:func:`_conv_in`), as the gates' convs do."""
 
     compute_dtype = torch.float32
+    shard = None
 
     def __init__(self, h_dim: int):
         super().__init__()
@@ -365,8 +429,10 @@ class SepConvGRU(nn.Module):
         cz, cr, cq = (getattr(self, f"conv{g}{s}") for g in "zrq")
         hd = h.shape[1]
         dt = self.compute_dtype
-        zr = _conv_in(dt, lambda i, k, b: F.conv2d(i, k, b,
-                                                   padding=cz.padding),
+        conv = ((lambda i, k, b: F.conv2d(i, k, b, padding=cz.padding))
+                if self.shard is None
+                else _rows_conv(self.shard, (1, 1), cz.padding))
+        zr = _conv_in(dt, conv,
                       torch.cat([h.to(dt), x.to(dt)], dim=1),
                       torch.cat([cz.weight, cr.weight], dim=0),
                       torch.cat([cz.bias, cr.bias]))
@@ -517,6 +583,33 @@ class DeMFINet(nn.Module):
         for mod in self.modules():
             if isinstance(mod, (_Conv, _Conv3dT1, FGAC, SepConvGRU)):
                 mod.compute_dtype = compute_dtype
+        # the rows a shard holds must be a multiple of this, and so must
+        # its first row: space-to-depth and RefineUNet's three stride-2
+        # encoders
+        self.row_stride = math.lcm(scale_factor, 2 ** 3)
+
+    shard = None        # the RowShard that :meth:`rows` sets, or None
+
+    @contextlib.contextmanager
+    def rows(self, shard):
+        """Within the block the model computes on ``shard``'s rows of a
+        frame (a :class:`~demfi_torch.parallel.RowShard`; None: the whole
+        frame): its inputs are those rows, and so are its outputs, those
+        of the whole frame's forward. Serving only. Refuses a shard whose
+        rows or first row are not multiples of :attr:`row_stride`."""
+        if shard is not None and (shard.rows % self.row_stride
+                                  or shard.r0 % self.row_stride):
+            raise ValueError(
+                f"rows [{shard.r0}, {shard.r1}) of a {shard.h}-row frame "
+                f"cannot be split exactly: each card's rows and first row "
+                f"must be multiples of the network's total stride "
+                f"{self.row_stride} (space-to-depth "
+                f"{self.FF_RDB_Module.scale_factor}, three stride-2 "
+                f"encoders), so the padded "
+                f"height must be a multiple of {self.row_stride} x "
+                f"{shard.size} to split it {shard.size} ways")
+        with rows_of(self, shard):
+            yield self
 
     # the modules built for use_stage2, read only when num_update > 0
     STAGE2 = ("Ch_Reducer", "Booster_Module", "Dec_first_2", "Decoder_res_2",
@@ -571,11 +664,12 @@ class DeMFINet(nn.Module):
         b1 = ctx.frames[:, 3:6]
 
         flow_t0, flow_t1 = cfr_flow_t_align(ctx.flow_01, ctx.flow_10, t,
-                                            self.fwarp_shift_d)
+                                            self.fwarp_shift_d, self.shard)
         occ_0 = torch.sigmoid(ctx.occ_0_logit.float())
         # the features warp in the compute dtype; the gather returns
         # float32 and the blend runs in float32
-        ft = _t_blend(*bwarp_pair(ctx.f0, ctx.f1, flow_t0, flow_t1), occ_0, t)
+        ft = _t_blend(*bwarp_pair(ctx.f0, ctx.f1, flow_t0, flow_t1,
+                                  self.shard), occ_0, t)
 
         agg1 = torch.cat([ctx.a_f0, ctx.a_f1, ft.to(dt), flow_t0.to(dt),
                           flow_t1.to(dt), ctx.flow_01.to(dt),
@@ -590,8 +684,8 @@ class DeMFINet(nn.Module):
         occ_0 = torch.sigmoid(occ_0_logit)
         r_f0 = torch.tanh(agg1[:, 5:5 + nf])
         r_f1 = torch.tanh(agg1[:, 5 + nf:5 + 2 * nf])
-        r_ft = _t_blend(*bwarp_pair(r_f0, r_f1, rflow_t0, rflow_t1), occ_0,
-                        t).to(dt)
+        r_ft = _t_blend(*bwarp_pair(r_f0, r_f1, rflow_t0, rflow_t1,
+                                    self.shard), occ_0, t).to(dt)
 
         # D1: joint 3-frame decode (frames folded into the batch)
         bsz, _, h, w = r_f0.shape
@@ -663,8 +757,8 @@ class DeMFINet(nn.Module):
         ft0_f = delta_flow[:, :2].float()
         ft1_f = delta_flow[:, 2:4].float()
         occ_0_f = torch.sigmoid(delta_occ.float())
-        st_new = _t_blend(*bwarp_pair(s0p, s1p, ft0_f, ft1_f), occ_0_f,
-                          t).to(dt)
+        st_new = _t_blend(*bwarp_pair(s0p, s1p, ft0_f, ft1_f, self.shard),
+                          occ_0_f, t).to(dt)
 
         # float32 like the JAX model's (the frames promote it); the conv
         # that reads it casts it to the compute dtype

@@ -192,14 +192,15 @@ def _bind(name: str, lib: ctypes.CDLL) -> ctypes.CDLL:
     vp, i = ctypes.c_void_p, ctypes.c_int
     if name == "bilinear_gather":
         # img_a, img_b, coords_a, coords_b, out, ones, n, C, H, W, Hq, Wq,
-        # relative, stream (the image float32 or bfloat16)
+        # relative, row0, stream (the image float32 or bfloat16)
         fns = [lib.demfi_bilinear_gather_f32, lib.demfi_bilinear_gather_bf16]
         for fn in fns:
-            fn.argtypes = [vp] * 6 + [i] * 7 + [vp]
+            fn.argtypes = [vp] * 6 + [i] * 8 + [vp]
     elif name == "fwarp_splat":
         fns = [lib.demfi_fwarp_splat_f32]
-        # img, flo, out, norm, flag, served, route_stats, B, C, H, W, stream
-        fns[0].argtypes = [vp, vp, vp, vp, vp, vp, vp, i, i, i, i, vp]
+        # img, flo, out, norm, flag, served, route_stats, B, C, H, W, Hs,
+        # r0, stream
+        fns[0].argtypes = [vp] * 7 + [i] * 6 + [vp]
     elif name == "bilinear_gather_bwd":
         # img_a, img_b, coords_a, coords_b, gout_a, gout_b, grad_img,
         # grad_coords, route_stats, n, C, H, W, Hq, Wq, relative, stream;
@@ -215,8 +216,9 @@ def _bind(name: str, lib: ctypes.CDLL) -> ctypes.CDLL:
         fns[0].argtypes = [vp] * 10 + [i] * 5 + [vp]
     else:
         fns = [lib.demfi_fwarp_shift_f32]
-        # img, flo, out, norm, flag, served, row_stats, B, C, H, W, D, stream
-        fns[0].argtypes = [vp, vp, vp, vp, vp, vp, vp, i, i, i, i, i, vp]
+        # img, flo, out, norm, flag, served, row_stats, B, C, H, W, Ho,
+        # row_off, D, stream
+        fns[0].argtypes = [vp] * 7 + [i] * 7 + [vp]
     for fn in fns:
         fn.restype = i
     return lib
@@ -269,7 +271,26 @@ def _needs_grad(*tensors: torch.Tensor) -> bool:
     return torch.is_grad_enabled() and any(t.requires_grad for t in tensors)
 
 
-def _launch_gather(halves, relative: bool, want_ones: bool):
+def _check_rows(name: str, relative: bool, h: int, w: int, hq: int, wq: int,
+                row0: Optional[int]) -> None:
+    """A relative gather's query grid is the image grid (row0 None) or,
+    given row0, rows [row0, row0 + Hq) of it: the rows that a card holds
+    of a frame split by rows. Absolute mode takes any query grid and no
+    row0."""
+    if relative and row0 is None and (hq, wq) != (h, w):
+        raise ValueError(f"{name}: relative mode needs the query grid to "
+                         f"equal the image grid (or a row0)")
+    if relative and row0 is not None and (wq != w or row0 < 0
+                                          or row0 + hq > h):
+        raise ValueError(f"{name}: relative mode needs the query grid to be "
+                         f"rows [row0, row0 + Hq) of the image grid: query "
+                         f"{hq}x{wq} at row {row0}, image {h}x{w}")
+    if not relative and row0 is not None:
+        raise ValueError(f"{name}: row0 applies to relative mode only")
+
+
+def _launch_gather(halves, relative: bool, want_ones: bool,
+                   row0: Optional[int] = None):
     """One launch of the gather kernel on one or two (img, coords) halves
     of equal shapes. Returns (out, ones) over all halves' batch elements,
     the first half's first."""
@@ -281,9 +302,7 @@ def _launch_gather(halves, relative: bool, want_ones: bool):
         raise ValueError(f"bilinear_gather: coords {tuple(coords.shape)} "
                          f"for img {tuple(img.shape)}")
     hq, wq = coords.shape[2:]
-    if relative and (hq, wq) != (h, w):
-        raise ValueError("bilinear_gather: relative mode needs the query "
-                         "grid to equal the image grid")
+    _check_rows("bilinear_gather", relative, h, w, hq, wq, row0)
     if any(i.shape != img.shape or q.shape != coords.shape
            for i, q in halves[1:]):
         raise ValueError("bilinear_gather: the two halves differ in shape")
@@ -301,7 +320,7 @@ def _launch_gather(halves, relative: bool, want_ones: bool):
         img.data_ptr(), None if img_b is None else img_b.data_ptr(),
         coords.data_ptr(), None if coords_b is None else coords_b.data_ptr(),
         out.data_ptr(), None if ones is None else ones.data_ptr(),
-        n, c, h, w, hq, wq, int(relative),
+        n, c, h, w, hq, wq, int(relative), int(row0 or 0),
         _raw_stream(img.device))
     _raise_on("bilinear_gather", rc)
     bilinear_gather.launches += 1
@@ -326,7 +345,8 @@ def _launch_gather_bwd(halves, relative: bool, route_stats=None):
     hq, wq = coords.shape[2:]
     if relative and (hq, wq) != (h, w):
         raise ValueError("bilinear_gather_bwd: relative mode needs the query "
-                         "grid to equal the image grid")
+                         "grid to equal the image grid (the row-offset "
+                         "gather has no backward yet)")
     if tuple(gout.shape) != (n, c, hq, wq):
         raise ValueError(f"bilinear_gather_bwd: grad_out {tuple(gout.shape)} "
                          f"for an output {(n, c, hq, wq)}")
@@ -391,11 +411,12 @@ class _Gather(torch.autograd.Function):
 
 
 def _launch_gather_pair(img_a, img_b, coords_a, coords_b, relative: bool,
-                        want_ones: bool):
+                        want_ones: bool, row0: Optional[int] = None):
     """One launch on two halves, split back into ((out_a, out_b),
     (ones_a, ones_b) or None): views of one allocation."""
+    rows = {} if row0 is None else {"row0": row0}
     out, ones = _launch_gather([(img_a, coords_a), (img_b, coords_b)],
-                               relative, want_ones)
+                               relative, want_ones, **rows)
     n = img_a.shape[0]
     return (out[:n], out[n:]), (None if ones is None
                                 else (ones[:n], ones[n:]))
@@ -435,8 +456,18 @@ class _GatherPair(torch.autograd.Function):
         return gi_a, gi_b, gc_a, gc_b, None, None
 
 
+def _serving_rows(name: str, *tensors: torch.Tensor) -> None:
+    """Refuse the rows of a split frame under autograd: the row-offset
+    kernels have no backward yet (training's spatial axis is a later
+    slice)."""
+    if _needs_grad(*tensors):
+        raise NotImplementedError(
+            f"{name}: the rows of a split frame serve only; the row-offset "
+            f"kernels have no backward yet")
+
+
 def bilinear_gather(img: torch.Tensor, coords: torch.Tensor, relative: bool,
-                    want_ones: bool = True
+                    want_ones: bool = True, row0: Optional[int] = None
                     ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
     """Bilinear zero-padded gather of img [B,C,H,W] (float32 or bfloat16)
     at coords [B,2,Hq,Wq] (float32); the output is float32 either way.
@@ -446,14 +477,21 @@ def bilinear_gather(img: torch.Tensor, coords: torch.Tensor, relative: bool,
     weight [B,1,H,W], or None with want_ones=False: the kernel then
     neither allocates nor writes the plane. relative=False (FGAC): sample
     at the absolute coords on any query grid and return (out, None).
-    Differentiable in img and coords (on the card by
-    :func:`bilinear_gather_bwd`)."""
+    row0 (relative mode): the query grid is rows [row0, row0 + Hq) of
+    the image grid, as for the rows that a card holds of a frame split
+    by rows; serving only. Differentiable in img and coords without row0
+    (on the card by :func:`bilinear_gather_bwd`)."""
+    if row0 is not None:
+        _serving_rows("bilinear_gather", img, coords)
     if img.device.type == "cpu" and coords.device.type == "cpu":
-        out, ones = _warp.bilinear_gather_plain(img, coords, relative)
+        _check_rows("bilinear_gather", relative, *img.shape[2:],
+                    *coords.shape[2:], row0)
+        out, ones = _warp.bilinear_gather_plain(img, coords, relative,
+                                                row0 or 0)
         return out, ones if want_ones else None
     if _needs_grad(img, coords):
         return _Gather.apply(img, coords, relative, want_ones)
-    return _launch_gather([(img, coords)], relative, want_ones)
+    return _launch_gather([(img, coords)], relative, want_ones, row0)
 
 
 bilinear_gather.launches = 0
@@ -462,24 +500,31 @@ bilinear_gather.bf16_launches = 0       # of them, the bfloat16 image's
 
 def bilinear_gather_pair(img_a: torch.Tensor, img_b: torch.Tensor,
                          coords_a: torch.Tensor, coords_b: torch.Tensor,
-                         relative: bool, want_ones: bool = False):
+                         relative: bool, want_ones: bool = False,
+                         row0: Optional[int] = None):
     """:func:`bilinear_gather` of two halves of equal shapes in one
     launch (counted in ``bilinear_gather.launches``), the kernel taking
     both halves' pointers: nothing is concatenated. Returns
     ((out_a, out_b), (ones_a, ones_b) or None); on the card the two are
     views of one allocation. Under autograd each half has its own
-    gradient, and the backward is one launch too."""
+    gradient, and the backward is one launch too. row0 as for
+    :func:`bilinear_gather`."""
     tensors = (img_a, img_b, coords_a, coords_b)
+    if row0 is not None:
+        _serving_rows("bilinear_gather_pair", *tensors)
     if all(t.device.type == "cpu" for t in tensors):
-        out_a, ones_a = bilinear_gather(img_a, coords_a, relative, want_ones)
-        out_b, ones_b = bilinear_gather(img_b, coords_b, relative, want_ones)
+        rows = {} if row0 is None else {"row0": row0}
+        out_a, ones_a = bilinear_gather(img_a, coords_a, relative, want_ones,
+                                        **rows)
+        out_b, ones_b = bilinear_gather(img_b, coords_b, relative, want_ones,
+                                        **rows)
         return (out_a, out_b), (None if ones_a is None else (ones_a, ones_b))
     if _needs_grad(*tensors):
         out_a, out_b, ones_a, ones_b = _GatherPair.apply(
             img_a, img_b, coords_a, coords_b, relative, want_ones)
         return (out_a, out_b), (None if ones_a is None else (ones_a, ones_b))
     return _launch_gather_pair(img_a, img_b, coords_a, coords_b, relative,
-                               want_ones)
+                               want_ones, row0)
 
 
 def bilinear_gather_bwd(img: torch.Tensor, coords: torch.Tensor,
@@ -544,21 +589,29 @@ def _check_fwarp(name: str, img: torch.Tensor, flo: torch.Tensor) -> None:
                          f"{tuple(img.shape)}")
 
 
-def _launch_splat(img, flo, out, norm, flag, route_stats=None) -> None:
+def _launch_splat(img, flo, out, norm, flag, route_stats=None,
+                  r0: int = 0) -> None:
+    """The splat of img's rows into out and norm, whose rows may be more:
+    source row y lands on output row y + r0 (the rows of a split
+    frame)."""
     b, c, h, w = img.shape
-    if h * w >= 2 ** 31:
+    ho = out.shape[2]
+    if max(h, ho) * w >= 2 ** 31:
         raise ValueError("fwarp_splat: a plane of 2^31 elements or more")
     rc = build()["fwarp_splat"].demfi_fwarp_splat_f32(
         img.data_ptr(), flo.data_ptr(), out.data_ptr(), norm.data_ptr(),
         flag.data_ptr() if flag is not None else None,
         _served_counter(img.device).data_ptr() + 4,
         route_stats.data_ptr() if route_stats is not None else None,
-        b, c, h, w, _raw_stream(img.device))
+        b, c, ho, w, h, int(r0), _raw_stream(img.device))
     _raise_on("fwarp_splat", rc)
     fwarp_splat.launches += 1
 
 
-def _launch_shift(img, flo, d, out, norm, flag, row_stats=None) -> None:
+def _launch_shift(img, flo, d, out, norm, flag, row_stats=None,
+                  row_off: int = 0) -> None:
+    """The stencil sum for out's rows, which may be fewer than img's:
+    output row y is source row y + row_off."""
     b, c, h, w = img.shape
     if h * w >= 2 ** 31:
         raise ValueError("fwarp_shift: a plane of 2^31 elements or more")
@@ -567,16 +620,19 @@ def _launch_shift(img, flo, d, out, norm, flag, row_stats=None) -> None:
         flag.data_ptr() if flag is not None else None,
         _served_counter(img.device).data_ptr(),
         row_stats.data_ptr() if row_stats is not None else None,
-        b, c, h, w, int(d), _raw_stream(img.device))
+        b, c, h, w, out.shape[2], int(row_off), int(d),
+        _raw_stream(img.device))
     _raise_on("fwarp_shift", rc)
     fwarp_shift.launches += 1
 
 
-def _fwarp_outputs(img: torch.Tensor, alloc
+def _fwarp_outputs(img: torch.Tensor, alloc, h: Optional[int] = None
                    ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """(out [B,C,H,W], norm [B,1,H,W]): two contiguous views of one
-    allocation, so that the splat's zeroing is one fill, not two."""
-    b, c, h, w = img.shape
+    """(out [B,C,h,W], norm [B,1,h,W]), h the image's rows unless given:
+    two contiguous views of one allocation, so that the splat's zeroing
+    is one fill, not two."""
+    b, c, hi, w = img.shape
+    h = hi if h is None else h
     n = b * c * h * w
     buf = alloc(n + b * h * w, dtype=torch.float32, device=img.device)
     return buf[:n].view(b, c, h, w), buf[n:].view(b, 1, h, w)
@@ -693,7 +749,8 @@ def fwarp_pair(img_a: torch.Tensor, flo_a: torch.Tensor,
 
 
 def fwarp_splat(img: torch.Tensor, flo: torch.Tensor,
-                route_stats: Optional[torch.Tensor] = None
+                route_stats: Optional[torch.Tensor] = None,
+                rows: Optional[Tuple[int, int]] = None
                 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Gaussian forward splat of img [B,C,H,W] by flo [B,2,H,W], exact for
     any motion. A source pixel whose flow is NaN, infinite or so large
@@ -703,12 +760,35 @@ def fwarp_splat(img: torch.Tensor, flo: torch.Tensor,
     which the kernel adds its 32x8 source tiles that went through the
     shared-memory box and those that added straight to global memory.
     Returns (warped [B,C,H,W], weight norm [B,1,H,W]), differentiable in
-    img and flo (on the card by :func:`fwarp_splat_bwd`)."""
+    img and flo (on the card by :func:`fwarp_splat_bwd`).
+    rows=(r0, Ho), serving only: img and flo are rows [r0, r0 + H) of a
+    frame of Ho rows (a card's rows of a frame split by rows), and the
+    outputs are that frame's [B,C,Ho,W] and [B,1,Ho,W] canvases with only
+    these rows' splats; the sum of every card's canvases is the splat of
+    the whole frame."""
+    if rows is not None:
+        return _splat_canvas(img, flo, rows, route_stats)
     if img.device.type == "cpu" and flo.device.type == "cpu":
         return _warp.fwarp_splat_plain(img, flo)
     _check_fwarp("fwarp_splat", img, flo)
     _check_stats("fwarp_splat", route_stats, img)
     return _fwarp_call(img, flo, _splat_fwd, route_stats)
+
+
+def _splat_canvas(img, flo, rows, route_stats=None):
+    """:func:`fwarp_splat` with rows=(r0, Ho)."""
+    r0, ho = rows
+    if not 0 <= r0 <= ho - img.shape[2]:
+        raise ValueError(f"fwarp_splat: rows [{r0}, {r0 + img.shape[2]}) "
+                         f"are not rows of a frame of {ho}")
+    _serving_rows("fwarp_splat", img, flo)
+    if img.device.type == "cpu" and flo.device.type == "cpu":
+        return _warp.fwarp_splat_plain(img, flo, rows)
+    _check_fwarp("fwarp_splat", img, flo)
+    _check_stats("fwarp_splat", route_stats, img)
+    out, norm = _fwarp_outputs(img, torch.zeros, rows[1])
+    _launch_splat(img, flo, out, norm, None, route_stats, rows[0])
+    return out, norm
 
 
 fwarp_splat.launches = 0
@@ -721,7 +801,8 @@ def _check_window(name: str, d: int) -> None:
 
 
 def fwarp_shift(img: torch.Tensor, flo: torch.Tensor, d: int,
-                row_stats: Optional[torch.Tensor] = None
+                row_stats: Optional[torch.Tensor] = None,
+                rows: Optional[Tuple[int, int]] = None
                 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Deterministic forward warp of img [B,C,H,W] by flo [B,2,H,W]: the
     stencil sum over the (2d+2)^2 window, equal to the splat where
@@ -733,12 +814,28 @@ def fwarp_shift(img: torch.Tensor, flo: torch.Tensor, d: int,
     vote skipped.
     Returns (warped [B,C,H,W], weight norm [B,1,H,W]); on the card its
     gradient is the splat's (:func:`fwarp_splat_bwd`), the window's
-    equal where max|flo| <= d - 1."""
+    equal where max|flo| <= d - 1.
+    rows=(row_off, Ho), serving only: only the output rows [row_off,
+    row_off + Ho) of img's grid are computed ([B,C,Ho,W], [B,1,Ho,W]),
+    bit for bit those rows of the call without rows. A card that holds
+    rows of a frame split by rows passes its rows with a halo of d + 1
+    rows above and d below (as far as the frame reaches), and row_off
+    the halo above it has."""
     _check_window("fwarp_shift", d)
+    if rows is not None:
+        row_off, ho = rows
+        if not (0 <= row_off and row_off + ho <= img.shape[2]):
+            raise ValueError(f"fwarp_shift: output rows [{row_off}, "
+                             f"{row_off + ho}) outside {img.shape[2]}")
+        _serving_rows("fwarp_shift", img, flo)
     if img.device.type == "cpu" and flo.device.type == "cpu":
-        return _warp.fwarp_shift_plain(img, flo, d)
+        return _warp.fwarp_shift_plain(img, flo, d, rows)
     _check_fwarp("fwarp_shift", img, flo)
     _check_stats("fwarp_shift", row_stats, img)
+    if rows is not None:
+        out, norm = _fwarp_outputs(img, torch.empty, rows[1])
+        _launch_shift(img, flo, d, out, norm, None, row_stats, rows[0])
+        return out, norm
     return _fwarp_call(img, flo, _shift_fwd, d, row_stats)
 
 

@@ -33,6 +33,22 @@ the JAX package does; ``F.grid_sample`` is not used (its
 normalise/unnormalise round trip differs in the last bits).
 
 Flows: [B, 2, H, W], channel 0 = dx (along W), channel 1 = dy (along H).
+
+Rows of a split frame: each public op takes ``shard``, a
+:class:`~demfi_torch.parallel.RowShard` (None: the whole frame). Its
+tensors are then the shard's rows, and so is its result, those rows of
+the whole frame's result. A backward warp gathers the whole source frame
+(``allgather_rows``) and samples it for its rows at their own grid rows
+(the gather's row offset); a forward warp by the atomic splat splats its
+source rows into a zeroed canvas of the whole frame, the ranks' canvases
+are summed (``allreduce_sum``) and each keeps its rows; by the stencil
+it takes a halo of the window's rows of img and flo, and gives its rows
+bit for bit. The choice between the two (``shift_d > 0``) reads every
+rank's flows: one flag a half, reduced over the group and read on the
+host. FGAC's point-wise sample (rr = 0) samples the whole ref frame at
+the shard's coordinates; its window form (rr > 0) is not row-local (the
+tiled centroid canvas and shifted unfold), so it runs on the whole
+frame's inputs and keeps the shard's rows.
 """
 from __future__ import annotations
 
@@ -42,6 +58,8 @@ import torch
 import torch.nn.functional as F
 
 from demfi_torch.ops import kernels
+from demfi_torch.parallel.halo import (allgather_rows, allreduce_max,
+                                       allreduce_sum, exchange_rows)
 
 
 def _bilinear_zeros(img: torch.Tensor, px: torch.Tensor, py: torch.Tensor
@@ -85,7 +103,7 @@ def _bilinear_zeros(img: torch.Tensor, px: torch.Tensor, py: torch.Tensor
 
 
 def bilinear_gather_plain(img: torch.Tensor, coords: torch.Tensor,
-                          relative: bool
+                          relative: bool, row0: int = 0
                           ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
     """Plain version of the ``bilinear_gather`` kernel.
 
@@ -94,21 +112,26 @@ def bilinear_gather_plain(img: torch.Tensor, coords: torch.Tensor,
     relative: sample at ``grid + coords`` (Hq, Wq == H, W), multiply by
     the hard mask (in-image weight >= 0.999, in float32) and return
     (out, in-image weight). Absolute: sample at ``coords`` and return
-    (out, None)."""
-    h, w = img.shape[-2:]
+    (out, None). row0 (relative mode): the query grid is rows [row0,
+    row0 + Hq) of the image grid (a card's rows of a frame split by
+    rows)."""
+    w = img.shape[-1]
+    hq = coords.shape[-2]
     px = coords[:, 0].float()
     py = coords[:, 1].float()
     if relative:
         dev = img.device
         px = torch.arange(w, dtype=torch.float32, device=dev)[None, None] + px
-        py = torch.arange(h, dtype=torch.float32, device=dev)[None, :, None] + py
+        py = torch.arange(row0, row0 + hq, dtype=torch.float32,
+                          device=dev)[None, :, None] + py
     out, ones = _bilinear_zeros(img, px, py)
     if not relative:
         return out, None
     return out * (ones >= 0.999).to(out.dtype), ones
 
 
-def fwarp_splat_plain(img: torch.Tensor, flo: torch.Tensor
+def fwarp_splat_plain(img: torch.Tensor, flo: torch.Tensor,
+                      rows: Optional[Tuple[int, int]] = None
                       ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Plain version of the ``fwarp_splat`` kernel: a deterministic
     scatter-add.
@@ -118,8 +141,12 @@ def fwarp_splat_plain(img: torch.Tensor, flo: torch.Tensor
     r1, c1 = floor(flo) (bucketed by the displacement, then added to the
     integer base grid) and wgt = exp(-((fr - dr)^2 + (fc - dc)^2)) of the
     fractional parts. Corners outside the image are dropped.
-    Returns (warped [B,C,H,W], weight norm [B,1,H,W])."""
+    Returns (warped [B,C,H,W], weight norm [B,1,H,W]).
+    rows=(r0, Ho): img and flo are rows [r0, r0 + H) of a frame of Ho
+    rows, and the outputs are that frame's canvases ([B,C,Ho,W],
+    [B,1,Ho,W]) with only these rows' splats."""
     b, c, h, w = img.shape
+    r0, ho = (0, h) if rows is None else rows
     dc = flo[:, 0]
     dr = flo[:, 1]
     c1f = torch.floor(dc)
@@ -129,24 +156,24 @@ def fwarp_splat_plain(img: torch.Tensor, flo: torch.Tensor
     c1 = c1f.long()
     r1 = r1f.long()
     dev = img.device
-    base_r = torch.arange(h, device=dev)[None, :, None]
+    base_r = torch.arange(r0, r0 + h, device=dev)[None, :, None]
     base_c = torch.arange(w, device=dev)[None, None, :]
 
     vals = torch.cat([img, torch.ones_like(img[:, :1])], dim=1).reshape(
         b, c + 1, h * w)
-    acc = torch.zeros_like(vals)
+    acc = vals.new_zeros((b, c + 1, ho * w))
     for ddr in (0, 1):
         for ddc in (0, 1):
             wgt = torch.exp(-((fr - ddr) ** 2 + (fc - ddc) ** 2))
             tr = base_r + r1 + ddr
             tc = base_c + c1 + ddc
-            valid = (tr >= 0) & (tr < h) & (tc >= 0) & (tc < w)
+            valid = (tr >= 0) & (tr < ho) & (tc >= 0) & (tc < w)
             wgt = wgt * valid.to(img.dtype)
-            idx = (tr.clamp(0, h - 1) * w + tc.clamp(0, w - 1)).reshape(
+            idx = (tr.clamp(0, ho - 1) * w + tc.clamp(0, w - 1)).reshape(
                 b, 1, h * w)
             acc.scatter_add_(2, idx.expand(b, c + 1, h * w),
                              vals * wgt.reshape(b, 1, h * w))
-    acc = acc.reshape(b, c + 1, h, w)
+    acc = acc.reshape(b, c + 1, ho, w)
     return acc[:, :c], acc[:, c:]
 
 
@@ -183,7 +210,8 @@ def fwarp_splat_plain_vjp(img: torch.Tensor, flo: torch.Tensor,
     return grad_img, grad_flo
 
 
-def fwarp_shift_plain(img: torch.Tensor, flo: torch.Tensor, d: int
+def fwarp_shift_plain(img: torch.Tensor, flo: torch.Tensor, d: int,
+                      rows: Optional[Tuple[int, int]] = None
                       ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Plain version of the ``fwarp_shift`` kernel: the forward warp as a
     stencil sum, with no scatter.
@@ -198,8 +226,11 @@ def fwarp_shift_plain(img: torch.Tensor, flo: torch.Tensor, d: int
     outer, dx inner) in float32, so on one device the two agree bit for
     bit. Equal to :func:`fwarp_splat_plain` to rounding wherever
     max|flo| <= d - 1; splats beyond the window, and outside the image,
-    are dropped. Returns (warped [B,C,H,W], weight norm [B,1,H,W])."""
+    are dropped. Returns (warped [B,C,H,W], weight norm [B,1,H,W]).
+    rows=(row_off, Ho): only output rows [row_off, row_off + Ho), bit for
+    bit those rows of the call without rows."""
     b, c, h, w = img.shape
+    row_off, ho = (0, h) if rows is None else rows
     dc = flo[:, 0:1].float()
     dr = flo[:, 1:2].float()
     c1 = torch.floor(dc)
@@ -226,7 +257,7 @@ def fwarp_shift_plain(img: torch.Tensor, flo: torch.Tensor, d: int
         for dx in span:
             acc[:, :, s + dy:s + dy + h, s + dx:s + dx + w] += \
                 vals * (my[dy] * mx[dx])
-    out = acc[:, :, s:s + h, s:s + w]
+    out = acc[:, :, s + row_off:s + row_off + ho, s:s + w]
     return (out[:, :c].to(img.dtype).contiguous(),
             out[:, c:].to(img.dtype).contiguous())
 
@@ -235,16 +266,21 @@ def fwarp_shift_plain(img: torch.Tensor, flo: torch.Tensor, d: int
 # Public ops: each goes through a kernel wrapper (plain version on the CPU,
 # the CUDA kernel on the card).
 # ---------------------------------------------------------------------------
-def bwarp(x: torch.Tensor, flow: torch.Tensor) -> torch.Tensor:
+def bwarp(x: torch.Tensor, flow: torch.Tensor, shard=None) -> torch.Tensor:
     """out(p) = x(p + flow(p)), bilinear, zero padding, times the hard
     mask (in-image weight >= 0.999)."""
+    if shard is not None:
+        out, _ = kernels.bilinear_gather(
+            allgather_rows(x, shard), flow.contiguous(), relative=True,
+            want_ones=False, row0=shard.r0)
+        return out
     out, _ = kernels.bilinear_gather(x.contiguous(), flow.contiguous(),
                                      relative=True, want_ones=False)
     return out
 
 
 def bwarp_pair(a: torch.Tensor, b: torch.Tensor,
-               flow_a: torch.Tensor, flow_b: torch.Tensor
+               flow_a: torch.Tensor, flow_b: torch.Tensor, shard=None
                ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Both directions' backward warps as one gather (one kernel launch
     that takes both halves' pointers: nothing is concatenated). The two
@@ -253,23 +289,72 @@ def bwarp_pair(a: torch.Tensor, b: torch.Tensor,
         raise ValueError(f"bwarp_pair: unequal halves {tuple(a.shape)}, "
                          f"{tuple(b.shape)}, {tuple(flow_a.shape)}, "
                          f"{tuple(flow_b.shape)}")
+    if shard is not None:
+        outs, _ = kernels.bilinear_gather_pair(
+            allgather_rows(a, shard), allgather_rows(b, shard),
+            flow_a.contiguous(), flow_b.contiguous(), relative=True,
+            row0=shard.r0)
+        return outs
     outs, _ = kernels.bilinear_gather_pair(
         a.contiguous(), b.contiguous(), flow_a.contiguous(),
         flow_b.contiguous(), relative=True)
     return outs
 
 
-def bilinear_sample_abs(img: torch.Tensor, coords: torch.Tensor
+def bilinear_sample_abs(img: torch.Tensor, coords: torch.Tensor, shard=None
                         ) -> torch.Tensor:
     """Bilinear sample at absolute pixel coordinates coords [B,2,Hq,Wq]
     (channel 0 = x, channel 1 = y), zero padding; no base grid is added
     (FGAC's trained-in absolute-coordinate behaviour)."""
+    if shard is not None:
+        img = allgather_rows(img, shard)
     out, _ = kernels.bilinear_gather(img.contiguous(), coords.contiguous(),
                                      relative=False)
     return out
 
 
-def fwarp(img: torch.Tensor, flo: torch.Tensor, shift_d: int = 0
+def _fwarp_rows(halves, shift_d: int, shard):
+    """:func:`fwarp` of each (img, flo) half of a shard's rows. With
+    shift_d > 0 a half takes the stencil where no |flo| of the whole
+    frame exceeds shift_d - 1 (one flag a half, reduced over the group
+    and read on the host), else the splat."""
+    wide = [True] * len(halves)
+    if shift_d > 0:
+        flags = torch.stack([(f.abs() > float(shift_d - 1)).any()
+                             for _, f in halves]).float()
+        wide = [v > 0 for v in allreduce_max(flags, shard).tolist()]
+    return [_splat_rows(i, f, shard) if w
+            else _shift_rows(i, f, shift_d, shard)
+            for (i, f), w in zip(halves, wide)]
+
+
+def _splat_rows(img, flo, shard):
+    """The splat of a shard's rows into a canvas of the whole frame, the
+    canvases of the group summed, this shard's rows kept."""
+    b, c, rows, w = img.shape
+    out, norm = kernels.fwarp_splat(img, flo, rows=(shard.r0, shard.h))
+    both = allreduce_sum(torch.cat([out.reshape(-1), norm.reshape(-1)]),
+                         shard)
+    n = out.numel()
+    rows_of = slice(shard.r0, shard.r1)
+    return (both[:n].view(b, c, shard.h, w)[:, :, rows_of].contiguous(),
+            both[n:].view(b, 1, shard.h, w)[:, :, rows_of].contiguous())
+
+
+def _shift_rows(img, flo, d: int, shard):
+    """The stencil's sum for a shard's rows: its rows of img and flo with
+    d + 1 rows above and d below, as far as the frame reaches."""
+    c, rows = img.shape[1], img.shape[2]
+    up, down = d + 1, d
+    both = exchange_rows(torch.cat([img, flo], dim=1), up, down, shard)
+    top = up if shard.index > 0 else 0
+    bottom = down if shard.index < shard.size - 1 else 0
+    both = both[:, :, up - top:up + rows + bottom]
+    return kernels.fwarp_shift(both[:, :c].contiguous(),
+                               both[:, c:].contiguous(), d, rows=(top, rows))
+
+
+def fwarp(img: torch.Tensor, flo: torch.Tensor, shift_d: int = 0, shard=None
           ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Forward warp (Gaussian splat). Returns (warped, weight norm); the
     caller normalises.
@@ -281,13 +366,16 @@ def fwarp(img: torch.Tensor, flo: torch.Tensor, shift_d: int = 0
     a call is counted on the device, ``kernels.fwarp_served``)."""
     img = img.contiguous()
     flo = flo.contiguous()
+    if shard is not None:
+        return _fwarp_rows([(img, flo)], shift_d, shard)[0]
     if shift_d <= 0:
         return kernels.fwarp_splat(img, flo)
     return kernels.fwarp_guarded(img, flo, shift_d)
 
 
 def fwarp_pair(img_a: torch.Tensor, flo_a: torch.Tensor,
-               img_b: torch.Tensor, flo_b: torch.Tensor, shift_d: int = 0):
+               img_b: torch.Tensor, flo_b: torch.Tensor, shift_d: int = 0,
+               shard=None):
     """:func:`fwarp` of two halves of equal shapes: ((warped_a, norm_a),
     (warped_b, norm_b)), each what :func:`fwarp` returns. On the card the
     forward kernels run once per half and, under autograd, the two
@@ -296,13 +384,17 @@ def fwarp_pair(img_a: torch.Tensor, flo_a: torch.Tensor,
         raise ValueError(f"fwarp_pair: unequal halves {tuple(img_a.shape)}, "
                          f"{tuple(img_b.shape)}, {tuple(flo_a.shape)}, "
                          f"{tuple(flo_b.shape)}")
+    if shard is not None:
+        return tuple(_fwarp_rows([(img_a.contiguous(), flo_a.contiguous()),
+                                  (img_b.contiguous(), flo_b.contiguous())],
+                                 shift_d, shard))
     return kernels.fwarp_pair(img_a.contiguous(), flo_a.contiguous(),
                               img_b.contiguous(), flo_b.contiguous(),
                               shift_d)
 
 
 def cfr_flow_t_align(flow_01: torch.Tensor, flow_10: torch.Tensor,
-                     t: torch.Tensor, shift_d: int = 0
+                     t: torch.Tensor, shift_d: int = 0, shard=None
                      ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Complementary Flow Reversal (from XVFI). flow_01/flow_10
     [B,2,H,W]; t broadcastable to [B,1,1,1]; shift_d as in
@@ -313,7 +405,8 @@ def cfr_flow_t_align(flow_01: torch.Tensor, flow_10: torch.Tensor,
     through unnormalised (denominator norm + (1 - mask))."""
     t = t.reshape(-1, 1, 1, 1).to(flow_01.dtype)
     (w01, n0), (w10, n1) = fwarp_pair(flow_01, t * flow_01,
-                                      flow_10, (1.0 - t) * flow_10, shift_d)
+                                      flow_10, (1.0 - t) * flow_10, shift_d,
+                                      shard)
 
     flow_t0 = -(1.0 - t) * t * w01 + t * t * w10
     flow_t1 = (1.0 - t) * (1.0 - t) * w01 - t * (1.0 - t) * w10
@@ -352,7 +445,7 @@ def fgac_window_coords(flow: torch.Tensor, rr: int) -> torch.Tensor:
 
 
 def fgac_correlate(ref_k: torch.Tensor, source_k: torch.Tensor,
-                   flow: torch.Tensor, rr: int = 0, sr: int = 0
+                   flow: torch.Tensor, rr: int = 0, sr: int = 0, shard=None
                    ) -> torch.Tensor:
     """Flow-Guided Attentive Correlation aggregation (Eq. 3).
 
@@ -368,6 +461,12 @@ def fgac_correlate(ref_k: torch.Tensor, source_k: torch.Tensor,
     offsets interleave per-pixel windows; and the strided unfold with
     padding rr re-extracts windows shifted by -rr block cells. All taps
     are gathered in one sample over the (H*G, W*G) query grid."""
+    if shard is not None:
+        ref_k = allgather_rows(ref_k, shard)
+        if rr > 0:
+            whole = fgac_correlate(ref_k, allgather_rows(source_k, shard),
+                                   allgather_rows(flow, shard), rr, sr)
+            return whole[:, :, shard.r0:shard.r1]
     ref_k = _avg_pool_same(ref_k, 2 * sr + 1)
     if rr == 0:
         return bilinear_sample_abs(ref_k, flow)

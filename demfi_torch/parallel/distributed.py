@@ -38,17 +38,28 @@ def rank_device(device: str, process_id: int) -> torch.device:
     return torch.device("cuda", process_id % torch.cuda.device_count())
 
 
+BACKENDS = ("nccl", "gloo")
+
+
 def init_distributed(coordinator_address: Optional[str] = None,
                      num_processes: Optional[int] = None,
                      process_id: Optional[int] = None,
-                     device: str = "cuda") -> Tuple[int, int]:
+                     device: str = "cuda",
+                     backend: Optional[str] = None) -> Tuple[int, int]:
     """Join the process group; returns (process_id, process_count).
 
     With neither an address nor a process count this is a no-op that
     returns (0, 1), as the JAX package's is. Otherwise all three flags
-    are needed; the group's backend is NCCL for a CUDA device (which
-    becomes the process's current device) and gloo for the CPU, its
-    store ``tcp://{coordinator_address}``, served by rank 0."""
+    are needed; a CUDA device becomes the process's current device, the
+    group's store is ``tcp://{coordinator_address}``, served by rank 0,
+    and its backend ``backend``: by default NCCL for a CUDA device and
+    gloo for the CPU. NCCL refuses two ranks on one card; gloo ranks may
+    share one (rank p drives ``cuda:{p % device_count}``), their
+    collectives staged through the host while the kernels run on the
+    card."""
+    if backend is not None and backend not in BACKENDS:
+        raise ValueError(f"backend must be one of {BACKENDS}, got "
+                         f"{backend!r}")
     if dist.is_initialized():
         return dist.get_rank(), dist.get_world_size()
     if not coordinator_address and not num_processes:
@@ -60,9 +71,12 @@ def init_distributed(coordinator_address: Optional[str] = None,
         raise ValueError(f"--process_id {process_id} outside "
                          f"[0, {num_processes})")
     dev = rank_device(device, process_id)
+    if backend == "nccl" and dev.type != "cuda":
+        raise ValueError("the nccl backend needs a CUDA device")
     if dev.type == "cuda":
         torch.cuda.set_device(dev)
-    dist.init_process_group("nccl" if dev.type == "cuda" else "gloo",
+    dist.init_process_group(backend or ("nccl" if dev.type == "cuda"
+                                        else "gloo"),
                             init_method=f"tcp://{coordinator_address}",
                             world_size=num_processes, rank=process_id)
     return process_id, num_processes

@@ -355,7 +355,7 @@ def main(argv) -> int:
         rc = lib.demfi_bilinear_gather_f32(
             a.data_ptr(), None if b is None else b.data_ptr(), ca.data_ptr(),
             None if cb is None else cb.data_ptr(), out.data_ptr(), None,
-            n, c, h, w, ca.shape[2], ca.shape[3], int(relative),
+            n, c, h, w, ca.shape[2], ca.shape[3], int(relative), 0,
             torch.cuda.current_stream().cuda_stream)
         if rc != 0:
             raise RuntimeError(f"cudaError {rc}")

@@ -60,7 +60,7 @@ SHARED_ADDS = """#pragma unroll
                     ? -1 : (r - rb) * bw + (c - cb);
     }
     for (int ch = 0; ch < C; ++ch) {
-      const float v = src[(int64_t)ch * hw + p];
+      const float v = src[(int64_t)ch * shw + p];
       float* plane = box + ch * area;
 #pragma unroll
       for (int k = 0; k < 4; ++k)
@@ -102,7 +102,7 @@ PAIR_MERGE = WARP_PROLOGUE + """    const int ntr = __shfl_down_sync(0xffffffffu
                       ntc == tc[0] + 1;
     const bool take = __shfl_up_sync(0xffffffffu, (int)give, 1) && lane > 0;
     for (int ch = 0; ch <= C; ++ch) {
-      const float v = ch < C && lv ? src[(int64_t)ch * hw + p] : 1.0f;
+      const float v = ch < C && lv ? src[(int64_t)ch * shw + p] : 1.0f;
       float val[4];
 #pragma unroll
       for (int k = 0; k < 4; ++k)
@@ -132,7 +132,7 @@ SHARED_MATCH = WARP_PROLOGUE + """#pragma unroll
       const bool alone = grp == (1u << lane);
       for (int ch = 0; ch <= C; ++ch) {
         const float v = s < 0 ? 0.0f
-                        : ch < C ? __fmul_rn(src[(int64_t)ch * hw + p], wgt[k])
+                        : ch < C ? __fmul_rn(src[(int64_t)ch * shw + p], wgt[k])
                                  : wgt[k];
         float sum = v;
         if (!alone && s >= 0) {
@@ -160,7 +160,7 @@ GLOBAL_ROUTE = """#pragma unroll
         const int t = r * W + c;
         for (int ch = 0; ch < C; ++ch)
           atomicAdd(dst + (int64_t)ch * hw + t,
-                    __fmul_rn(src[(int64_t)ch * hw + p], wgt));
+                    __fmul_rn(src[(int64_t)ch * shw + p], wgt));
         atomicAdd(nrm + t, wgt);
       }
     }
@@ -184,7 +184,7 @@ GLOBAL_MATCH = """    {
         const bool leader = lane == __ffs(grp) - 1;
         for (int ch = 0; ch <= C; ++ch) {
           const float v = !valid ? 0.0f
-                          : ch < C ? __fmul_rn(src[(int64_t)ch * hw + p], wgt)
+                          : ch < C ? __fmul_rn(src[(int64_t)ch * shw + p], wgt)
                                    : wgt;
           float sum = v;
           if (grp != (1u << lane) && valid) {
@@ -259,8 +259,8 @@ VARIANTS = {
     "global_match": [(GLOBAL_ROUTE, GLOBAL_MATCH)],
     # diagnostic cuts (wrong results): what each part of the work costs
     "cut_after_box": [
-        ("  const float* src = img + (int64_t)b * C * hw;\n",
-         "  const float* src = img + (int64_t)b * C * hw;\n"
+        ("  const float* src = img + (int64_t)b * C * shw;\n",
+         "  const float* src = img + (int64_t)b * C * shw;\n"
          "  if (area < 0) box[0] = src[0];\n  return;\n")],
     "cut_flush": [(FLUSH_LOOP, FLUSH_LOOP.replace("g < groups", "g < 0"))],
     "cut_shared_atomics": [
@@ -362,7 +362,7 @@ def main(argv) -> int:
         rc = lib.demfi_fwarp_splat_f32(
             img.data_ptr(), flo.data_ptr(), out.data_ptr(), norm.data_ptr(),
             None, None, None if route_stats is None else route_stats.data_ptr(),
-            b, c, H, W, torch.cuda.current_stream().cuda_stream)
+            b, c, H, W, H, 0, torch.cuda.current_stream().cuda_stream)
         if rc != 0:
             raise RuntimeError(f"cudaError {rc}")
 

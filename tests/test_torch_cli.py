@@ -178,11 +178,17 @@ def test_cli_refuses(tree, capsys):
     save_checkpoint(checkpoint_path(DeMFIConfig(
         checkpoint_dir=str(root / "refuse" / "ckpt")), "latest"), sd)
     # training runs (tests/test_torch_train.py), on one process or more
-    # (tests/test_torch_parallel.py); the JAX package's mesh flags have
-    # no counterpart (the spatial axis is not ported)
-    with pytest.raises(SystemExit):
-        cli(["--phase", "test", "--device", "cpu", "--mesh_spatial", "2"])
-    assert "unrecognized arguments: --mesh_spatial" in capsys.readouterr().err
+    # (tests/test_torch_parallel.py); the JAX package's mesh flags are
+    # accepted, and --mesh_spatial 2 needs two processes
+    # (tests/test_torch_spatial.py runs them)
+    cfg = parse_args(["--phase", "test", "--device", "cpu",
+                      "--mesh_spatial", "2", "--mesh_data", "1"])
+    assert (cfg.mesh_spatial, cfg.mesh_data) == (2, 1)
+    with pytest.raises(ValueError, match="--mesh_spatial 2 splits rows "
+                                         "across 2 processes of one data "
+                                         "group, but the run has 1 process"):
+        cli(["--phase", "test", "--mesh_spatial", "2", *SMALL,
+             *dirs(root, "refuse")])
     if not torch.cuda.is_available():
         # no card and no --device cpu: the run fails, it does not carry on
         with pytest.raises(RuntimeError, match="CUDA"):

@@ -1091,3 +1091,62 @@ def test_model_backward_card_matches_cpu(cuda_device):
     assert all((got[k] is None) == (want[k] is None) for k in want)
     for k, b in bound.items():
         assert grad_check.rel_frobenius(got[k], want[k]) <= b, k
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("split", [2, 4])
+@pytest.mark.parametrize("image_dtype", [torch.float32, torch.bfloat16])
+def test_row_offset_kernels(cuda_device, split, image_dtype):
+    """The forward kernels on every shard of a frame split by rows
+    (--mesh_spatial): the gather pair at its row offset equals the unsplit
+    kernel's rows bit for bit and its plain version to 1e-5 (a bfloat16
+    image likewise); the splat of a shard's rows into the whole canvas
+    agrees with its plain version, and the shards' canvases summed with
+    the unsplit splat, to 1e-5 of the largest value; the stencil on a
+    shard's rows and halo equals its plain version and the unsplit
+    kernel's rows bit for bit."""
+    rng = np.random.RandomState(split)
+    b, c, h, w, d = 2, 5, 48, 72, 8
+    rows = h // split
+
+    def cuda(*shape, scale=1.0):
+        return torch.from_numpy((rng.randn(*shape) * scale).astype(
+            np.float32)).to(cuda_device)
+    img_a, img_b = cuda(b, c, h, w).to(image_dtype), \
+        cuda(b, c, h, w).to(image_dtype)
+    fa, fb = cuda(b, 2, h, w, scale=6), cuda(b, 2, h, w, scale=6)
+    src = cuda(b, 2, h, w)
+    flo = torch.from_numpy(rng.uniform(-d + 1.5, d - 1.5, (b, 2, h, w)).astype(
+        np.float32)).to(cuda_device)
+    whole_g = kernels.bilinear_gather_pair(img_a, img_b, fa, fb, True)[0]
+    whole_s = kernels.fwarp_splat(src, flo * 2)
+    whole_k = kernels.fwarp_shift(src, flo, d)
+    summed = [torch.zeros_like(v) for v in whole_s]
+    for i in range(split):
+        r0, r1 = i * rows, (i + 1) * rows
+        ca, cb = fa[:, :, r0:r1].contiguous(), fb[:, :, r0:r1].contiguous()
+        got = kernels.bilinear_gather_pair(img_a, img_b, ca, cb, True,
+                                           row0=r0)[0]
+        for g, whole, img, cc in zip(got, whole_g, (img_a, img_b), (ca, cb)):
+            assert torch.equal(g, whole[:, :, r0:r1])
+            torch.testing.assert_close(
+                g, warp.bilinear_gather_plain(img, cc, True, r0)[0],
+                atol=1e-5, rtol=1e-5)
+        sl, fl = src[:, :, r0:r1].contiguous(), \
+            (flo * 2)[:, :, r0:r1].contiguous()
+        got = kernels.fwarp_splat(sl, fl, rows=(r0, h))
+        want = warp.fwarp_splat_plain(sl, fl, (r0, h))
+        for g, p, acc in zip(got, want, summed):
+            assert g.shape == p.shape
+            assert float((g - p).abs().max()) <= 1e-5 * float(p.abs().max())
+            acc += g
+        lo, hi = max(r0 - d - 1, 0), min(r1 + d, h)
+        sh, fh = src[:, :, lo:hi].contiguous(), flo[:, :, lo:hi].contiguous()
+        got = kernels.fwarp_shift(sh, fh, d, rows=(r0 - lo, rows))
+        want = warp.fwarp_shift_plain(sh, fh, d, (r0 - lo, rows))
+        for g, p, whole in zip(got, want, whole_k):
+            assert torch.equal(g, p)
+            assert torch.equal(g, whole[:, :, r0:r1])
+    for acc, whole in zip(summed, whole_s):
+        assert float((acc - whole).abs().max()) <= \
+            1e-5 * float(whole.abs().max())

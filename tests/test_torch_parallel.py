@@ -143,16 +143,20 @@ def test_loader_slices_make_up_the_stream_and_equal_jax(tree, batch_size):
 
 # ---------------------------------------------------------- (e) refusals
 def test_flag_refusals(tree, capsys):
-    """--mesh_spatial 2 and --mesh_data 2 (the JAX package's mesh flags:
-    the port has no spatial axis, and its data axis spans every process)
-    are refused when the flags are parsed; a global batch the processes
-    cannot share, or a last partial batch, when the loader is built;
-    incomplete coordinator flags when the process group is joined."""
+    """--phase train --mesh_spatial 2 (training's spatial axis is a later
+    slice) is refused when the flags are parsed, and --mesh_data 2 in
+    one process (the data axis spans every process) when the run starts;
+    a global batch the processes cannot share, or a last partial batch,
+    when the loader is built; incomplete coordinator flags when the
+    process group is joined."""
     base = ["--phase", "train", *SMALL_ARGS, *dir_args(dirs(tree, "refuse"))]
-    for flag in ("--mesh_spatial", "--mesh_data"):
-        with pytest.raises(SystemExit):
-            cli(base + [flag, "2"])
-        assert f"unrecognized arguments: {flag} 2" in capsys.readouterr().err
+    with pytest.raises(SystemExit):
+        cli(base + ["--mesh_spatial", "2"])
+    assert "training's spatial axis is a later slice" in \
+        capsys.readouterr().err
+    with pytest.raises(ValueError, match="--mesh_data 2 does not match the "
+                                         "process group: 1 processes"):
+        cli(base + ["--mesh_data", "2"])
     ds = AdobeTrainDataset(str(tree), t_sampling_num=8, patch_size=32)
     with pytest.raises(ValueError, match="divisible"):
         TrainLoader(ds, 3, process_id=0, process_count=2)
