@@ -5,7 +5,7 @@
     python3 chip_smoke.py --profile [DIR]  # adds a torch.profiler
                                      # breakdown of one window and of one
                                      # train step; keeps the traces in DIR
-    python3 chip_smoke.py --kernels-of DIR   # phases 1-3e only, on the
+    python3 chip_smoke.py --kernels-of DIR   # phases 1-3f only, on the
                                      # checkout of the port at DIR
 
 Phases:
@@ -164,15 +164,35 @@ Phases:
      (c) windows/s split at 352x640 and 1080p beside the unsplit rates,
      each rank's peak memory, the collectives' share of a window (CUDA
      events around each), and UHD untiled at t_chunk 1 where there are
-     four cards.
+     four cards;
+ 11. training's spatial axis (``--phase train --mesh_spatial``): ranks
+     of its own (``--split-train-rank``), as phase 10; phase 7(c)'s
+     step (DeMFI-Net_rb(5,3), batch 2, 256x256, N_trn 5, its weights and
+     batch) with the rows split S ways, float32 and bfloat16, against
+     the unsplit step on the same weights and batch run here (loss 1e-4,
+     bfloat16 1e-2; every float32 gradient within the larger of 1e-3 and
+     twice the unsplit step's own spread between two runs; every
+     bfloat16 gradient by its moments, mean and std within 0.08 of its
+     std, or of its value where it holds one), s/step split beside 7(c)'s
+     and 7(c')'s, the collectives' share of a step forward and backward
+     (CUDA events, ``halo.timing``), each rank's peak memory, exact
+     launches of all five kernels a step on every rank; then ``cli
+     --phase train --mesh_spatial S`` for one epoch on phase 7(d)'s tree
+     and ``--auto_resume`` for one more.
 Phase 3e (also under ``--kernels-of``): the three forward kernels on
 every shard of 2- and 4-way row splits of the 352x640 frame, against
 their plain versions and the unsplit kernel's rows (gather 1e-5, its
 bfloat16 image 1e-2, the splat 1e-5 and its summed canvases, the
 stencil bit for bit); the kernels line carries them as "row_offset".
+Phase 3f (also under ``--kernels-of``): the two backward kernels on
+every shard of 2- and 4-way row splits of the train step's frame
+(batch 2, 256x256) at its four sites, against their plain vjps and the
+unsplit kernel after the group's reduction, with device ms and enqueue
+us beside the unsplit launch's; "row_offset" of the backward kernels'
+entries.
 
-Prints a "[9 summary]" line and a {"kernels": [...]} line, then as its
-last line
+Prints a "[9 summary]" and an "[11 summary]" line and a {"kernels":
+[...]} line, then as its last line
 {"ok": true, "device": {"platform": "gpu", ...}}. Any failed phase exits
 non-zero before either is printed; so does a run without a CUDA card.
 """
@@ -280,6 +300,16 @@ SPATIAL_REPEATS = 2            # timed windows at 352x640
 SPATIAL_TIMEOUT = 600          # s, for all ranks
 HD = (1080, 1920)
 UHD = (2160, 3840)
+# phase 11: training's spatial axis. Split steps a dtype: the first against
+# the unsplit step's gradients, the rest timed after SPLIT_WARMUP
+SPLIT_STEPS = {"float32": 5, "bfloat16": 4}
+SPLIT_WARMUP = 2
+SPLIT_TRAIN_TIMEOUT = 420      # s, for all ranks
+# predicted for two gloo ranks sharing one card, written before the
+# first run of phase 11: s/step (float32 low, high), the collectives'
+# share of a float32 step, each rank's peak GiB (float32 low, high)
+SPLIT_PREDICTED = {"s_per_step": (1.0, 2.0), "collectives_share": (0.5, 0.75),
+                   "peak_gib": (5.5, 8.0)}
 EMPTY_KERNEL_SRC = r"""
 #include <cuda_runtime.h>
 __global__ void demfi_empty_kernel() {}
@@ -423,15 +453,17 @@ def benchmark_text(secs: dict, unit: str) -> str:
 
 
 def gather_image_pixels(torch, coords, relative: bool, h: int, w: int,
-                        where=None) -> int:
+                        where=None, row0: int = 0) -> int:
     """Pixels of the image that a bilinear gather at coords [B,2,Hq,Wq]
     must read: the union, per batch element, of its in-image taps (of the
-    query pixels ``where`` [B,Hq,Wq] marks, if given)."""
+    query pixels ``where`` [B,Hq,Wq] marks, if given); relative query
+    rows at ``row0`` of the image's."""
     b, _, hq, wq = coords.shape
     px, py = coords[:, 0], coords[:, 1]
     if relative:
         px = px + torch.arange(w, device=coords.device)[None, None]
-        py = py + torch.arange(h, device=coords.device)[None, :, None]
+        py = py + torch.arange(row0, row0 + hq,
+                               device=coords.device)[None, :, None]
     x0 = torch.floor(px).long()
     y0 = torch.floor(py).long()
     reached = torch.zeros(b, h * w, dtype=torch.bool, device=coords.device)
@@ -447,19 +479,31 @@ def gather_image_pixels(torch, coords, relative: bool, h: int, w: int,
     return int(reached.sum())
 
 
-def gather_bwd_counts(torch, warp, coords, relative: bool, h: int, w: int):
+def gather_bwd_counts(torch, warp, coords, relative: bool, h: int, w: int,
+                      row0: int = 0):
     """What the gather's vjp at coords [B,2,Hq,Wq] must touch: the
     unmasked query pixels (the relative mode's 0.999 mask zeroes the
     rest, grad_out there is not read) and the image pixels their in-image
-    taps reach."""
+    taps reach; relative query rows at ``row0`` of the image's."""
     b, _, hq, wq = coords.shape
     if relative:
         ones = torch.ones((b, 1, h, w), device=coords.device)
-        live = warp.bilinear_gather_plain(ones, coords, True)[1][:, 0] >= 0.999
+        live = warp.bilinear_gather_plain(ones, coords, True,
+                                          row0)[1][:, 0] >= 0.999
     else:
         live = torch.ones((b, hq, wq), dtype=torch.bool, device=coords.device)
     return (int(live.sum()),
-            gather_image_pixels(torch, coords, relative, h, w, where=live))
+            gather_image_pixels(torch, coords, relative, h, w, where=live,
+                                row0=row0))
+
+
+def bound_of(nbytes: float, ops: float) -> dict:
+    """The least time of a function that moves nbytes and does ops float32
+    operations on the card (HBM and float32 peaks of an H100 SXM)."""
+    bound_b = nbytes / HBM_BYTES_PER_S * 1e3
+    bound_o = ops / F32_FLOPS_PER_S * 1e3
+    return dict(bound_ms=max(bound_b, bound_o),
+                bound_by="bytes" if bound_b >= bound_o else "operations")
 
 
 def gather_bwd_sites(torch, dev) -> dict:
@@ -520,20 +564,23 @@ def empty_kernel(torch, tmp: Path):
     return launch
 
 
-def splat_targets(torch, flo) -> int:
+def splat_targets(torch, flo, r0: int = 0, ho=None) -> int:
     """Distinct in-image pixels the forward splat of flo [B,2,H,W] lands
-    on (the splat's vjp reads grad_out and grad_norm there only)."""
+    on (the splat's vjp reads grad_out and grad_norm there only); its
+    source rows at ``r0`` of a frame of ``ho`` rows (H)."""
     b, _, h, w = flo.shape
-    r = torch.floor(flo[:, 1]).long() + torch.arange(h, device=flo.device)[
-        None, :, None]
+    ho = h if ho is None else ho
+    r = torch.floor(flo[:, 1]).long() + torch.arange(
+        r0, r0 + h, device=flo.device)[None, :, None]
     c = torch.floor(flo[:, 0]).long() + torch.arange(w, device=flo.device)[
         None, None]
     fin = torch.isfinite(flo).all(1)
-    reached = torch.zeros(b, h * w, dtype=torch.bool, device=flo.device)
+    reached = torch.zeros(b, ho * w, dtype=torch.bool, device=flo.device)
     rows = torch.arange(b, device=flo.device)[:, None, None].expand(b, h, w)
     for dr in (0, 1):
         for dc in (0, 1):
-            ok = fin & (r + dr >= 0) & (r + dr < h) & (c + dc >= 0) & (c + dc < w)
+            ok = (fin & (r + dr >= 0) & (r + dr < ho) & (c + dc >= 0)
+                  & (c + dc < w))
             reached[rows[ok], ((r + dr) * w + c + dc)[ok]] = True
     return int(reached.sum())
 
@@ -1830,14 +1877,10 @@ def gather_bwd_timings(torch, dev, kernels, warp) -> list:
     return out
 
 
-def splat_bwd_timings(torch, dev, kernels, warp) -> dict:
-    """Phase 3d (``--kernels-of`` only): the splat's backward on CFR's two
-    halves at the train step's shapes (batch 2, C = 2, 256x256) on smooth
-    synthetic flows of up to ~20 px, so that two checkouts compare in one
-    run: per step the median of SPLAT_BWD_CALLS cold calls and of as many
-    back to back, of one launch a half (every checkout) and of one launch
-    on both halves (``fwarp_splat_bwd_pair``, where the checkout has it),
-    each against the plain vjp. Returns the times."""
+def cfr_bwd_halves(torch, dev) -> list:
+    """CFR's two splat halves at the train step's shapes (batch 2, C = 2,
+    256x256) on smooth synthetic flows of up to ~20 px, each [img, flo,
+    grad_out, grad_norm], made from SEED on the card."""
     b, c, h, w = TRAIN_B, 2, TRAIN_PS, TRAIN_PS
     yy, xx = np.meshgrid(np.arange(h), np.arange(w), indexing="ij")
     field = np.stack([3 * np.sin(xx / 40.0 + yy / 30.0),
@@ -1849,6 +1892,18 @@ def splat_bwd_timings(torch, dev, kernels, warp) -> dict:
         halves.append([torch.from_numpy(np.ascontiguousarray(
             x, np.float32)).to(dev) for x in (
             img, 0.4 * img, rng.randn(b, c, h, w), rng.randn(b, 1, h, w))])
+    return halves
+
+
+def splat_bwd_timings(torch, dev, kernels, warp) -> dict:
+    """Phase 3d (``--kernels-of`` only): the splat's backward on CFR's two
+    halves (cfr_bwd_halves), so that two checkouts compare in one run: per
+    step the median of SPLAT_BWD_CALLS cold calls and of as many back to
+    back, of one launch a half (every checkout) and of one launch on both
+    halves (``fwarp_splat_bwd_pair``, where the checkout has it), each
+    against the plain vjp. Returns the times."""
+    b, c, h, w = TRAIN_B, 2, TRAIN_PS, TRAIN_PS
+    halves = cfr_bwd_halves(torch, dev)
     want = [t for half in halves for t in warp.fwarp_splat_plain_vjp(*half)]
     fns = {"one launch a half": lambda: [kernels.fwarp_splat_bwd(*half)
                                          for half in halves]}
@@ -2003,6 +2058,190 @@ def row_offset_checks(torch, dev, kernels, warp, timer, a, b, ft0, ft1,
     return out
 
 
+def row_offset_bwd_checks(torch, dev, kernels, warp) -> list:
+    """Phase 3f (also under ``--kernels-of``): the two backward kernels at
+    their row offsets, on every shard of ROW_OFFSET_SPLITS-way splits of
+    the train step's frame (batch 2, 256x256): the gather's backward at
+    its three sites (gather_bwd_sites: the C=64 feature pair and the C=3
+    booster pair at ``row0``, float32 and bfloat16 images, and FGAC's
+    absolute sample of a shard's query rows) and the splat's backward on
+    CFR's two halves in one launch (cfr_bwd_halves, ``rows=(r0, H)``, the
+    whole frame's cotangents). Each shard against its plain vjp (1e-5 of
+    the largest value; a bfloat16 image's gradient 1e-2), and against the
+    unsplit kernel after the group's reduction: the shards' image
+    gradients summed (the backward of ``allgather_rows``) within the same
+    tolerance, the coordinates' and the splat's gradients the unsplit
+    rows bit for bit. Device ms and enqueue us of shard 0 beside the
+    unsplit launch's, its plain vjp's ms and its bound (7(a)'s count of
+    bytes and operations on shard 0's inputs: the gather's image gradient
+    is the whole frame's, zero fill included; the splat's cotangents are
+    read where shard 0's corners land). Returns the rows (the kernels
+    line's "row_offset" entries of the two backward kernels); a checkout
+    whose backward kernels take no row offsets returns []."""
+    if "row0" not in inspect.signature(kernels.bilinear_gather_bwd).parameters:
+        say("[3f row-offset backwards] not counted: this checkout's backward "
+            "kernels take no row offsets")
+        return []
+    timer = DeviceTimer(torch)
+    out = []
+    ps = TRAIN_PS
+
+    def rows_of(t, r0, r1):
+        return t[:, :, r0:r1].contiguous()
+    for site, (halves, relative) in gather_bwd_sites(torch, dev).items():
+        bf16 = halves[0][0].dtype == torch.bfloat16
+        if bf16 and not relative:
+            continue            # FGAC samples float32 in the bf16 model
+        img_tol = BWD_BF16_IMG_RTOL if bf16 else BWD_RTOL
+
+        def part_of(r0, r1):
+            return [(i, rows_of(co, r0, r1), rows_of(go, r0, r1))
+                    for i, co, go in halves]
+
+        def call(part=halves, r0=None, plain=False):
+            """[grad_img per half] + [grad_coords per half] of the halves'
+            query rows ``part``, rows [r0, ...) (all of them for r0
+            None)."""
+            row0 = {} if r0 is None or not relative else {"row0": r0}
+            if plain:
+                got = [warp.bilinear_gather_plain_vjp(
+                    i, co, relative, go, row0.get("row0", 0))
+                    for i, co, go in part]
+                return [g[0] for g in got] + [g[1] for g in got]
+            if len(part) == 1:
+                return list(kernels.bilinear_gather_bwd(
+                    *part[0][:2], relative, part[0][2], **row0))
+            (a, fa, ga), (b, fb, gb) = part
+            gi, gc = kernels.bilinear_gather_pair_bwd(a, b, fa, fb, ga, gb,
+                                                      relative, **row0)
+            return list(gi) + list(gc)
+        n = len(halves)
+        whole = call()
+        for split in ROW_OFFSET_SPLITS:
+            rows = ps // split
+            summed = [torch.zeros_like(g, dtype=torch.float32)
+                      for g in whole[:n]]
+            worst, coords_equal = 0.0, True
+            for i in range(split):
+                r0, r1 = i * rows, (i + 1) * rows
+                part = part_of(r0, r1)
+                got, want = call(part, r0), call(part, r0, plain=True)
+                for k, (g, p) in enumerate(zip(got, want)):
+                    tol = img_tol if k < n else BWD_RTOL
+                    err = float((g.float() - p.float()).abs().max()) / max(
+                        1e-30, float(p.float().abs().max()))
+                    check(err <= tol, f"3f {site} split {split} shard {i} "
+                                      f"output {k}: {err:.3g} of the largest "
+                                      f"value from the plain vjp (tol {tol})")
+                    worst = max(worst, err / tol)
+                for acc, g in zip(summed, got[:n]):
+                    acc += g.float()
+                coords_equal &= all(torch.equal(g, w[:, :, r0:r1])
+                                    for g, w in zip(got[n:], whole[n:]))
+            sum_err = max(float((acc - w.float()).abs().max())
+                          / float(w.float().abs().max())
+                          for acc, w in zip(summed, whole[:n]))
+            check(sum_err <= img_tol and coords_equal,
+                  f"3f {site} split {split}: summed image gradients "
+                  f"{sum_err:.3g} from the unsplit kernel's (tol {img_tol}), "
+                  f"coordinates' gradients bitwise its rows: {coords_equal}")
+            part = part_of(0, rows)
+            nbytes = ops = 0
+            for img, co, _ in part:
+                live, reached = gather_bwd_counts(torch, warp, co, relative,
+                                                  ps, ps)
+                c = img.shape[1]
+                nbytes += (4 * (live * c + 2 * co.numel())
+                           + img.element_size() * (reached * c + img.numel()))
+                ops += live * (24 * c + 30)
+            r = dict(kernel="bilinear_gather_bwd", site=site, split=split,
+                     image_dtype="bfloat16" if bf16 else "float32",
+                     worst_err_over_tol=worst, summed_err=sum_err,
+                     coords_equal_to_unsplit_rows=coords_equal,
+                     ms=timer.ms(lambda: call(part, 0), 5),
+                     enqueue_us=enqueue_us(torch, lambda: call(part, 0),
+                                           ENQUEUE_CALLS),
+                     plain_ms=timer.ms(lambda: call(part, 0, plain=True), 2),
+                     **bound_of(nbytes, ops),
+                     unsplit_ms=timer.ms(call, 5),
+                     unsplit_enqueue_us=enqueue_us(torch, call,
+                                                   ENQUEUE_CALLS))
+            out.append(r)
+            say(f"[3f row-offset backwards] gather bwd {site}, {split}-way: "
+                f"{split} shards against the plain vjp, worst {worst:.3g} of "
+                f"the tolerance; image gradients summed {sum_err:.3g} of the "
+                f"largest value from the unsplit kernel's, coordinates' "
+                f"bitwise its rows: {coords_equal}; shard 0 {r['ms']:.4f} ms "
+                f"device, {r['enqueue_us']:.1f} us enqueue, bound "
+                f"{r['bound_ms']:.4f} ms by {r['bound_by']}, plain vjp "
+                f"{r['plain_ms']:.4f} ms (unsplit {r['unsplit_ms']:.4f} ms, "
+                f"{r['unsplit_enqueue_us']:.1f} us)")
+    halves = cfr_bwd_halves(torch, dev)
+
+    def splat_part(r0, r1):
+        return [[rows_of(h[0], r0, r1), rows_of(h[1], r0, r1), h[2], h[3]]
+                for h in halves]
+
+    def splat(part=halves, r0=None, plain=False):
+        rows = {} if r0 is None else {"rows": (r0, ps)}
+        if plain:
+            return [t for h in part for t in warp.fwarp_splat_plain_vjp(
+                *h, rows.get("rows"))]
+        return [t for pair in kernels.fwarp_splat_bwd_pair(
+            *part[0], *part[1], **rows) for t in pair]
+    whole = splat()
+    for split in ROW_OFFSET_SPLITS:
+        rows = ps // split
+        worst, equal = 0.0, True
+        for i in range(split):
+            r0, r1 = i * rows, (i + 1) * rows
+            part = splat_part(r0, r1)
+            got, want = splat(part, r0), splat(part, r0, plain=True)
+            for g, p in zip(got, want):
+                err = float((g - p).abs().max()) / max(
+                    1e-30, float(p.abs().max()))
+                check(err <= BWD_RTOL, f"3f splat bwd split {split} shard "
+                                       f"{i}: {err:.3g} from the plain vjp")
+                worst = max(worst, err / BWD_RTOL)
+            equal &= all(torch.equal(g, w[:, :, r0:r1])
+                         for g, w in zip(got, whole))
+        check(equal, f"3f splat bwd split {split}: not the unsplit kernel's "
+                     f"rows bit for bit")
+        part = splat_part(0, rows)
+        nbytes = ops = 0
+        for img, flo, _, _ in part:
+            reached = splat_targets(torch, flo, 0, ps)
+            live = int(torch.isfinite(flo).all(1).sum())
+            c = img.shape[1]
+            nbytes += 4 * (2 * img.numel() + reached * (c + 1)
+                           + 2 * flo.numel())
+            ops += 4 * live * (4 * c + 10)
+        r = dict(kernel="fwarp_splat_bwd", site="CFR pair", split=split,
+                 image_dtype="float32", worst_err_over_tol=worst,
+                 equal_to_unsplit_rows=equal,
+                 ms=float(np.median(timer.times(lambda: splat(part, 0),
+                                                SPLAT_BWD_CALLS))),
+                 enqueue_us=enqueue_us(torch, lambda: splat(part, 0),
+                                       ENQUEUE_CALLS),
+                 plain_ms=timer.ms(lambda: splat(part, 0, plain=True), 2),
+                 **bound_of(nbytes, ops),
+                 unsplit_ms=float(np.median(timer.times(splat,
+                                                        SPLAT_BWD_CALLS))),
+                 unsplit_enqueue_us=enqueue_us(torch, splat, ENQUEUE_CALLS))
+        out.append(r)
+        say(f"[3f row-offset backwards] splat bwd, CFR's two halves in one "
+            f"launch, {split}-way: worst {worst:.3g} of the tolerance against "
+            f"the plain vjp; bitwise the unsplit kernel's rows: {equal}; "
+            f"shard 0 {r['ms']:.4f} ms device (median of {SPLAT_BWD_CALLS} "
+            f"cold), {r['enqueue_us']:.1f} us enqueue, bound "
+            f"{r['bound_ms']:.4f} ms by {r['bound_by']}, plain vjp "
+            f"{r['plain_ms']:.4f} ms (unsplit {r['unsplit_ms']:.4f} ms, "
+            f"{r['unsplit_enqueue_us']:.1f} us)")
+    del timer
+    torch.cuda.empty_cache()
+    return out
+
+
 def spatial_rank(work: Path, rank: int) -> int:
     """One rank of phase 10 (chip_smoke.py --spatial-rank R --spatial-dir
     DIR, started by spatial_phase): joins the group spec.json names,
@@ -2101,6 +2340,360 @@ def spatial_rank(work: Path, rank: int) -> int:
     (work / f"rank{rank}.json").write_text(json.dumps(out))
     print(f"SPATIAL_RANK_DONE {rank}", flush=True)
     return 0
+
+
+def moments_gap(got, want) -> float:
+    """The larger of the gaps of two tensors' means and standard
+    deviations, over the second's standard deviation, or over its size
+    where it holds one value (bfloat16's rule: never element by
+    element)."""
+    g, w = got.double(), want.double()
+    scale = max(float(w.std(correction=0) if w.numel() > 1
+                      else w.abs().max()), 1e-12)
+    return max(abs(float(g.mean() - w.mean())),
+               abs(float(g.std(correction=0) - w.std(correction=0)))) / scale
+
+
+def split_train_rank(work: Path, rank: int) -> int:
+    """One rank of phase 11 (chip_smoke.py --split-train-rank R
+    --spatial-dir DIR, started by split_train_phase): joins the group
+    spec.json names and runs the split train step (``make_train_step(cfg,
+    grid)``) of phase 7(c)'s weights and batch at float32 and bfloat16:
+    the first step's loss, gradients (rank 0; every rank holds the same
+    after the step's all-reduce) and flow rows, then timed steps with
+    the launches of all five kernels, each rank's peak memory and the
+    collectives' CUDA events before and after the forward's end; then
+    ``cli --phase train --mesh_spatial S`` for one epoch on phase 7(d)'s
+    tree and ``--auto_resume`` for one more. Writes rank<R>.json and
+    rank 0's gradients and every rank's flows as .pt files."""
+    spec = json.loads((work / "spec.json").read_text())
+    sys.path.insert(0, spec["tree"])
+    import torch
+    from demfi_torch.config import config_rb
+    from demfi_torch.main import cli
+    from demfi_torch.models import make_model
+    from demfi_torch.ops import kernels
+    from demfi_torch.parallel import (destroy_distributed, init_distributed,
+                                      make_grid)
+    from demfi_torch.parallel import halo
+    from demfi_torch.train import create_train_state, make_train_step
+
+    size, backend = spec["size"], spec["backend"]
+    init_distributed(f"127.0.0.1:{spec['port']}", size, rank, "cuda", backend)
+    dev = torch.device("cuda", torch.cuda.current_device())
+    grid = make_grid(0, size)
+    weights = torch.load(work / "weights.pt")
+    frames = torch.from_numpy(np.load(work / "batch.npy")).to(dev)
+    t_dev = torch.from_numpy(np.load(work / "t.npy")).to(dev)
+    out = dict(rank=rank, device=str(dev), runs={})
+    for dtype, n_steps in SPLIT_STEPS.items():
+        cfg = config_rb(5, 3, seed=SEED, compute_dtype=dtype)
+        model = make_model(cfg, device=dev)
+        model.load_state_dict(weights, strict=True)
+        state = create_train_state(cfg, model)
+        step = make_train_step(cfg, grid)
+        flows = []
+        hook = model.register_forward_hook(
+            lambda _m, _in, o: flows.append(o.flow_preds.detach().cpu()))
+        grads = {}
+
+        def snap(phase):
+            if phase == "backward":
+                grads.update({k: p.grad.detach().cpu().clone()
+                              for k, p in model.named_parameters()
+                              if p.grad is not None})
+        with torch.enable_grad():
+            loss0 = float(step(state, frames, t_dev,
+                               on_phase=snap)["total_loss"])
+        hook.remove()
+        torch.save(flows[0], work / f"flows_{dtype}_{rank}.pt")
+        if rank == 0:
+            torch.save(grads, work / f"grads_{dtype}.pt")
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats(dev)
+        kernels.reset_launch_counts()
+        losses, secs, step_ms, coll = [loss0], [], [], []
+        for _ in range(n_steps - 1):
+            halo.timing = []
+            mark = {}
+            ev = {k: torch.cuda.Event(enable_timing=True)
+                  for k in ("start", "optimizer")}
+
+            def on_phase(phase):
+                if phase == "forward":
+                    mark["forward"] = len(halo.timing)
+                if phase in ev:
+                    ev[phase].record()
+            t0 = time.perf_counter()
+            ev["start"].record()
+            with torch.enable_grad():
+                losses.append(float(step(state, frames, t_dev,
+                                         on_phase=on_phase)["total_loss"]))
+            torch.cuda.synchronize()
+            secs.append(time.perf_counter() - t0)
+            step_ms.append(ev["start"].elapsed_time(ev["optimizer"]))
+            k = mark["forward"]
+            coll.append([sum(a.elapsed_time(b) for a, b in halo.timing[:k]),
+                         sum(a.elapsed_time(b) for a, b in halo.timing[k:]),
+                         k, len(halo.timing) - k])
+            halo.timing = None
+        out["runs"][dtype] = dict(
+            loss0=loss0, losses=losses, seconds=secs, step_ms=step_ms,
+            collectives=coll, launches=kernels.launch_counts(),
+            bf16_launches=kernels.bf16_launch_counts(),
+            peak_bytes=torch.cuda.max_memory_allocated(dev),
+            timed_steps=n_steps - 1)
+        del model, state, step
+        torch.cuda.empty_cache()
+    destroy_distributed()
+    runs = []
+    for extra, port in ((["--epochs", "1"], spec["cli_ports"][0]),
+                        (["--epochs", "2", "--auto_resume"],
+                         spec["cli_ports"][1])):
+        t0 = time.perf_counter()
+        with torch.enable_grad(), contextlib.redirect_stdout(io.StringIO()):
+            res = cli(spec["cli"] + extra + [
+                "--coordinator_address", f"127.0.0.1:{port}",
+                "--num_processes", str(size), "--process_id", str(rank)])
+        runs.append(dict(start_epoch=res["start_epoch"],
+                         epoch_losses=res["epoch_losses"],
+                         final=list(res["final"][:5]),
+                         seconds=time.perf_counter() - t0))
+    out["cli"] = runs
+    (work / f"rank{rank}.json").write_text(json.dumps(out))
+    print(f"SPLIT_TRAIN_RANK_DONE {rank}", flush=True)
+    return 0
+
+
+def split_train_phase(torch, dev, tmp: Path, inputs: dict,
+                      fixed: dict) -> dict:
+    """Phase 11: training's spatial axis (``--phase train --mesh_spatial
+    S``) on the card. Ranks of their own (split_train_rank), as phase 10:
+    NCCL one rank a card with S = min(4, cards) where there are two cards
+    or more, else two gloo ranks sharing the one card. Each runs
+    DeMFI-Net_rb(5,3)'s step at the published setting (phase 7(c)'s
+    weights and batch) with the batch's rows split S ways, at float32 and
+    bfloat16; here, on this process's card, the unsplit step on the same
+    weights and batch, twice (the card's own spread). Checks: the split
+    loss against the unsplit one and phase 7(c)'s / 7(c')'s first (1e-4,
+    bfloat16 1e-2); at float32 every gradient within the larger of
+    GRAD_TOL and twice the card's own spread for that tensor (split and
+    unsplit run the same kernels on the same card, so no nudge of the
+    batch stands for their departure, as it does for phase 7(b)'s); at
+    bfloat16, whose roundings are chaotic through the depth (a
+    convolution of another shape rounds otherwise), each gradient by its
+    moments as tests/test_torch_spatial_train.py holds it (mean and std
+    within BF16_MOMENTS_TOL of its std, or of its value where it holds
+    one), never element by element; exact launches of all five kernels
+    a step on every rank, the CLI's two runs. Reports s/step split and
+    unsplit (7(c), 7(c')), the collectives' share of a step forward and
+    backward (CUDA events, ``halo.timing``), each rank's peak memory
+    beside 7(c)'s."""
+    from demfi_torch.checkpoint import load_training_checkpoint
+    from demfi_torch.config import config_rb
+    from demfi_torch.models import make_model
+    from demfi_torch.train import create_train_state, make_train_step
+    from demfi_torch.utils.grad_check import GRAD_TOL, rel_frobenius
+
+    cards = torch.cuda.device_count()
+    backend, size = (("nccl", min(4, cards)) if cards >= 2 else ("gloo", 2))
+    batch, t_np = inputs["batch"], inputs["t"]
+    t_dev = torch.from_numpy(t_np).to(dev)
+    say(f"[11 split train] {cards} card(s): {size} ranks, backend {backend}"
+        + (", one rank a card" if backend == "nccl" else
+           ", two gloo ranks sharing the one card (collectives staged "
+           "through the host): exactness, the path, memory and the "
+           "collectives' cost, no scaling figure"))
+
+    # the unsplit step on the same weights and batch, here, first
+    def unsplit_step(dtype, x):
+        """(loss, gradients by name, flows) of one unsplit step."""
+        cfg = config_rb(5, 3, seed=SEED, compute_dtype=dtype)
+        model = make_model(cfg, device=dev)
+        model.load_state_dict(inputs["weights"], strict=True)
+        state = create_train_state(cfg, model)
+        flows, got = [], {}
+        model.register_forward_hook(lambda _m, _in, o: flows.append(
+            o.flow_preds.detach().cpu()))
+
+        def snap(phase):
+            if phase == "backward":
+                got.update({k: p.grad.detach().cpu().clone()
+                            for k, p in model.named_parameters()
+                            if p.grad is not None})
+        with torch.enable_grad():
+            m = make_train_step(cfg)(state, torch.from_numpy(x).to(dev),
+                                     t_dev, on_phase=snap)
+        loss = float(m["total_loss"])
+        del model, state
+        return loss, got, flows[0]
+    unsplit = {dtype: unsplit_step(dtype, batch) for dtype in SPLIT_STEPS}
+    # the float32 check's yardstick: the card's own spread between two runs
+    again = unsplit_step("float32", batch)[1]
+    spread = {k: rel_frobenius(again[k], g)
+              for k, g in unsplit["float32"][1].items()}
+    torch.cuda.empty_cache()
+
+    work = tmp / "split_train"
+    work.mkdir()
+    torch.save(inputs["weights"], work / "weights.pt")
+    np.save(work / "batch.npy", batch)
+    np.save(work / "t.npy", t_np)
+    argv = [a if a != str(tmp / "train_ckpt") else str(tmp / "split_ckpt")
+            for a in inputs["argv"]] + ["--mesh_spatial", str(size)]
+    if backend == "gloo":
+        argv += ["--dist_backend", "gloo"]
+    (work / "spec.json").write_text(json.dumps(dict(
+        tree=str(Path(__file__).resolve().parent), size=size,
+        backend=backend, port=free_port(),
+        cli_ports=[free_port(), free_port()], cli=argv)))
+    t0 = time.perf_counter()
+    procs = [subprocess.Popen(
+        [sys.executable, str(Path(__file__).resolve()), "--split-train-rank",
+         str(r), "--spatial-dir", str(work)], stdout=subprocess.PIPE,
+        stderr=subprocess.STDOUT, text=True, env=dict(os.environ))
+        for r in range(size)]
+    texts = []
+    try:
+        for p in procs:
+            texts.append(p.communicate(timeout=SPLIT_TRAIN_TIMEOUT)[0])
+    finally:
+        for p in procs:
+            p.kill()
+            p.wait(timeout=30)
+    spawn_s = time.perf_counter() - t0
+    for r, (p, text) in enumerate(zip(procs, texts)):
+        check(p.returncode == 0, f"phase 11 rank {r} failed:\n{text[-3000:]}")
+    outs = [json.loads((work / f"rank{r}.json").read_text())
+            for r in range(size)]
+
+    summary = dict(ranks=size, backend=backend, cards=cards,
+                   spawn_seconds=spawn_s, dtypes={})
+    for dtype in SPLIT_STEPS:
+        loss_u, grads_u, flows_u = unsplit[dtype]
+        runs = [o["runs"][dtype] for o in outs]
+        loss_s = runs[0]["loss0"]
+        rtol = STEP_LOSS_RTOL if dtype == "float32" else BF16_LOSS_RTOL
+        ref_loss = fixed[dtype]["losses"][0]
+        for o, run in zip(outs, runs):
+            check(run["loss0"] == loss_s, f"11 {dtype}: rank {o['rank']}'s "
+                                          f"loss {run['loss0']} != {loss_s}")
+        rel = max(abs(loss_s - loss_u) / abs(loss_u),
+                  abs(loss_s - ref_loss) / abs(ref_loss))
+        phase7 = "7(c)" if dtype == "float32" else "7(c')"
+        check(rel <= rtol, f"11 {dtype}: split loss {loss_s}, unsplit "
+                           f"{loss_u}, phase {phase7} {ref_loss} (rtol "
+                           f"{rtol})")
+        grads_s = torch.load(work / f"grads_{dtype}.pt")
+        check(set(grads_s) == set(grads_u),
+              f"11 {dtype}: split and unsplit differ in which parameters "
+              f"have a gradient")
+        if dtype == "float32":
+            flows_s = torch.cat([torch.load(work / f"flows_{dtype}_{r}.pt")
+                                 for r in range(size)], dim=-2)
+            gap = rel_frobenius(flows_s, flows_u)
+            bound = {k: max(GRAD_TOL, 2 * spread[k]) for k in grads_u}
+            ratios = sorted(((rel_frobenius(grads_s[k], grads_u[k]) / b, k,
+                              rel_frobenius(grads_s[k], grads_u[k]), b)
+                             for k, b in bound.items()), reverse=True)
+            rule = (f"worst {ratios[0][1]} {ratios[0][2]:.3g} (bound "
+                    f"{ratios[0][3]:.3g}, floor {GRAD_TOL:.0e}, the card's "
+                    f"own spread up to {max(spread.values()):.3g}); flows "
+                    f"{gap:.3g} from the unsplit step's")
+        else:
+            ratios = sorted((moments_gap(grads_s[k], g) / BF16_MOMENTS_TOL,
+                             k, rel_frobenius(grads_s[k], g), None)
+                            for k, g in grads_u.items())[::-1]
+            rule = (f"by moments: worst {ratios[0][1]}, {ratios[0][0]:.3f} of "
+                    f"the tolerance {BF16_MOMENTS_TOL}; relative Frobenius "
+                    f"error up to {max(r[2] for r in ratios):.3g}")
+        worst = ratios[0]
+        check(worst[0] <= 1.0, f"11 {dtype}: split step gradients beyond "
+                               f"their bounds (ratio, name, err, bound): "
+                               f"{[r for r in ratios if r[0] > 1]}")
+        want = {k: v * runs[0]["timed_steps"]
+                for k, v in TRAIN_LAUNCHES.items()}
+        want16 = ({k: v * runs[0]["timed_steps"]
+                   for k, v in TRAIN_BF16_LAUNCHES.items()}
+                  if dtype == "bfloat16"
+                  else dict.fromkeys(TRAIN_BF16_LAUNCHES, 0))
+        for o, run in zip(outs, runs):
+            check(run["launches"] == want and run["bf16_launches"] == want16,
+                  f"11 {dtype} rank {o['rank']}: launches {run['launches']}, "
+                  f"bfloat16 {run['bf16_launches']}; want {want}, {want16}")
+            check(all(np.isfinite(run["losses"])),
+                  f"11 {dtype} rank {o['rank']}: losses {run['losses']}")
+        timed = slice(SPLIT_WARMUP - 1, None)     # the first was not timed
+        per_step = {k: v / runs[0]["timed_steps"]
+                    for k, v in runs[0]["launches"].items()}
+        s_step = float(np.median(runs[0]["seconds"][timed]))
+        step_ms = float(np.median(runs[0]["step_ms"][timed]))
+        coll = np.median(np.array(runs[0]["collectives"])[timed], axis=0)
+        peaks = [run["peak_bytes"] for run in runs]
+        d = dict(loss_split=loss_s, loss_unsplit=loss_u,
+                 loss_phase7c=ref_loss, loss_rel=rel, gradient_rule=rule,
+                 worst_grad=dict(name=worst[1], ratio=worst[0],
+                                 err=worst[2], bound=worst[3]),
+                 s_per_step=s_step, s_per_step_unsplit=fixed[dtype][
+                     "seconds_per_step"], step_device_ms=step_ms,
+                 collectives_ms_forward_backward=coll[:2].tolist(),
+                 collectives_forward_backward=coll[2:].tolist(),
+                 collectives_share=float((coll[0] + coll[1]) / step_ms),
+                 peak_bytes_per_rank=peaks,
+                 peak_bytes_unsplit=fixed[dtype]["peak_bytes"],
+                 launches_rank0=runs[0]["launches"],
+                 bf16_launches_rank0=runs[0]["bf16_launches"],
+                 step_seconds=runs[0]["seconds"], losses=runs[0]["losses"])
+        summary["dtypes"][dtype] = d
+        say(f"[11 split train] {dtype}: DeMFI-Net_rb(5,3) step at "
+            f"{TRAIN_B}x{TRAIN_PS}x{TRAIN_PS}, rows {size} ways ({backend}): "
+            f"loss {loss_s:.7f}, unsplit {loss_u:.7f}, phase {phase7} "
+            f"{ref_loss:.7f} (largest rel {rel:.2e}, tol {rtol:.0e}); "
+            f"{len(ratios)} gradients, {rule}")
+        say(f"[11 split train] {dtype}: {s_step:.4f} s/step split (median "
+            f"of {len(runs[0]['seconds'][timed])} after {SPLIT_WARMUP}; "
+            f"seconds {['%.4f' % v for v in runs[0]['seconds']]}) against "
+            f"{fixed[dtype]['seconds_per_step']:.4f} unsplit ({phase7}); step "
+            f"device span {step_ms:.1f} ms, collectives forward "
+            f"{coll[0]:.1f} ms ({int(coll[2])}), backward {coll[1]:.1f} ms "
+            f"({int(coll[3])}, the gradients' all-reduce included) = "
+            f"{100 * d['collectives_share']:.1f} % (CUDA events, rank 0); "
+            f"peak allocated per rank "
+            f"{[round(p / 2 ** 30, 3) for p in peaks]} GiB (unsplit "
+            f"{fixed[dtype]['peak_bytes'] / 2 ** 30:.3f}); launches per step "
+            f"{per_step} on every rank")
+
+    # the CLI: one epoch, then --auto_resume for one more
+    res0 = outs[0]["cli"]
+    for o in outs:
+        check([r["epoch_losses"] for r in o["cli"]]
+              == [r["epoch_losses"] for r in res0],
+              f"11 cli: rank {o['rank']}'s losses differ from rank 0's")
+    first, second = res0
+    check(first["start_epoch"] == 0 and second["start_epoch"] == 1
+          and all(np.isfinite(r["epoch_losses"]).all()
+                  and np.isfinite(r["final"]).all() for r in res0),
+          f"11 cli: {res0}")
+    ck = tmp / "split_ckpt" / "DeMFInet_exp1"
+    _, opt, meta = load_training_checkpoint(
+        str(ck / "DeMFInet_exp1_latest.pt"))
+    per_epoch = CLI_TRAIN_SCENES // TRAIN_B
+    check(int(opt["state"][0]["step"]) == 2 * per_epoch
+          and meta["last_epoch"] == 1,
+          f"11 cli: {opt['state'][0]['step']} Adam steps, last epoch "
+          f"{meta['last_epoch']}")
+    summary["cli"] = res0
+    say(f"[11 split train] cli --phase train --mesh_spatial {size}: epoch 0 "
+        f"in {first['seconds']:.2f} s, losses {first['epoch_losses']}; "
+        f"--auto_resume from epoch {second['start_epoch']} in "
+        f"{second['seconds']:.2f} s, losses {second['epoch_losses']}, "
+        f"{2 * per_epoch} Adam steps in the checkpoint; final x2 metrics "
+        f"{[round(v, 4) for v in second['final']]}")
+    summary["launches_rank0"] = {
+        k: sum(summary["dtypes"][d]["launches_rank0"][k] for d in SPLIT_STEPS)
+        for k in TRAIN_LAUNCHES}
+    say("[11 summary] " + json.dumps(summary, default=str))
+    return summary
 
 
 def spatial_phase(torch, dev, tmp: Path, weights: dict, frames, ts,
@@ -2313,7 +2906,7 @@ def main() -> int:
                          "and of one train step, and keep every trace "
                          "under DIR (default ./profile_trace)")
     ap.add_argument("--kernels-of", metavar="DIR", default="",
-                    help="run phases 1-3d on the checkout of the port at "
+                    help="run phases 1-3f on the checkout of the port at "
                          "DIR and stop ('.' for this one; an earlier "
                          "commit's, to time both in one run: what that "
                          "checkout's kernels lack, the pair entry, the "
@@ -2321,6 +2914,8 @@ def main() -> int:
                          "gather backward's route counts, is then not "
                          "checked)")
     ap.add_argument("--spatial-rank", type=int, default=None,
+                    help=argparse.SUPPRESS)
+    ap.add_argument("--split-train-rank", type=int, default=None,
                     help=argparse.SUPPRESS)
     ap.add_argument("--spatial-dir", default="", help=argparse.SUPPRESS)
     args = ap.parse_args()
@@ -2330,6 +2925,8 @@ def main() -> int:
         fail("no CUDA device: the port's smoke run needs one GPU")
     if args.spatial_rank is not None:       # one rank of phase 10
         return spatial_rank(Path(args.spatial_dir), args.spatial_rank)
+    if args.split_train_rank is not None:   # one rank of phase 11
+        return split_train_rank(Path(args.spatial_dir), args.split_train_rank)
     # the profiler's traces: kept under --profile's DIR, else in a
     # directory removed at exit
     trace_tmp = (None if args.profile
@@ -2561,9 +3158,11 @@ def main() -> int:
              n_b1.bfloat16(), ft0, ft1, per_window_bf16=3)
     single("gather abs C=64 B=1 query 3Hx3W", 0, ctx.f0.contiguous(),
            warp.fgac_window_coords(ctx.flow_01, 1).contiguous(), False)
-    # 3e: the forward kernels on the rows of a split frame
+    # 3e: the forward kernels on the rows of a split frame; 3f: the
+    # backward kernels on the rows of the train step's split frame
     offset_rows = row_offset_checks(torch, dev, kernels, warp, timer, n_f0,
                                     n_f1, ft0, ft1, flow_01, t, peak)
+    offset_bwd_rows = row_offset_bwd_checks(torch, dev, kernels, warp)
     f01 = torch.cat([n_f0, n_f1])
     del n_f0, n_f1
     single("gather rel C=64 B=14", 0, f01, flows_t, True)
@@ -2799,6 +3398,7 @@ def main() -> int:
                         "splat_bwd": splat_bwd_timings(
                             torch, dev, kernels, warp),
                         "row_offset": offset_rows,
+                        "row_offset_bwd": offset_bwd_rows,
                         "tree": args.kernels_of}))
         return 0
 
@@ -3200,7 +3800,6 @@ def main() -> int:
                     table2=harness_phase(torch, dev, tmp, str(ckpt),
                                          runs[1]["result"], n_windows),
                     sanity=sanity_phase(dev, tmp))
-        del step_inputs
 
         # ------------------------------------------- 10. the spatial axis
         torch.cuda.empty_cache()
@@ -3209,6 +3808,13 @@ def main() -> int:
             dict(result=runs[1]["result"], files=runs[1]["files"],
                  windows=n_windows), argv, card)
         del weights10, ref32, ref16
+
+        # ------------------------------------ 11. training's spatial axis
+        torch.cuda.empty_cache()
+        split_train = split_train_phase(torch, dev, tmp, step_inputs,
+                                        {"float32": train["float32"],
+                                         "bfloat16": train["bfloat16"]})
+        del step_inputs
 
     if args.profile:
         traces = sorted(Path(args.profile).glob("*.pt.trace.json"))
@@ -3241,6 +3847,10 @@ def main() -> int:
             library_ms=total("library_ms"), **extra, shapes=on_path)
 
     spatial_launches = spatial["launches_rank0"]
+    split_train_launches = split_train["launches_rank0"]
+    for kname, n in split_train_launches.items():
+        check(n > 0 or TRAIN_LAUNCHES[kname] == 0,
+              f"{kname}: never launched on the split train path")
 
     def offsets(kname, dtype="float32"):
         return [r for r in offset_rows if r["kernel"] == kname
@@ -3255,6 +3865,8 @@ def main() -> int:
                          launches_eval_path=eval_launches[kname],
                          launches_train_path=train["counts"][kname],
                          launches_spatial_path=spatial_launches[kname],
+                         launches_split_train_path=split_train_launches[
+                             kname],
                          row_offset=offsets(kname),
                          times_are="per window, summed over its launches"))
 
@@ -3267,6 +3879,11 @@ def main() -> int:
                      "per_step", dict(
                          launches_per_step=train["counts"][kname]
                          // OVERFIT_STEPS,
+                         launches_split_train_path=split_train_launches[
+                             kname],
+                         row_offset=[r for r in offset_bwd_rows
+                                     if r["kernel"] == kname
+                                     and r["image_dtype"] == "float32"],
                          times_are="per train step, summed over its "
                                    "launches"))
 
@@ -3307,6 +3924,9 @@ def main() -> int:
               "per_step_bf16", dict(
                   launches_per_step=train["bf16_counts"]["bilinear_gather_bwd"]
                   // OVERFIT_STEPS,
+                  row_offset=[r for r in offset_bwd_rows
+                              if r["kernel"] == "bilinear_gather_bwd"
+                              and r["image_dtype"] == "bfloat16"],
                   times_are="per bfloat16 train step, summed over its "
                             "launches of this instantiation")),
         bwd_summary("fwarp_splat_bwd", "demfi_torch/csrc/fwarp_splat_bwd.cu",
@@ -3335,7 +3955,7 @@ def main() -> int:
         "eval_engine_stream_span_share": ev["stream_span"] / ev["wall"],
         "train": {k: v for k, v in train.items()
                   if k not in ("bwd_rows", "counts", "bf16_counts")},
-        "ddp": ddp, "spatial": spatial}))
+        "ddp": ddp, "spatial": spatial, "split_train": split_train}))
     say(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

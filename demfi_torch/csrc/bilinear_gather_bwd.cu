@@ -23,6 +23,18 @@
 // coordinate and grad_out pointers of n batch elements each, written to
 // grad_img [2n,C,H,W] and grad_coords [2n,2,Hq,Wq].
 //
+// Row offset (relative mode), as in the forward (bilinear_gather.cu): query
+// row y stands for row y + row0 of the image's grid, so (px, py) = (x_q,
+// y_q + row0) + coords[b, :, q], the int added before the one float add.
+// A card that holds rows [row0, row0 + Hq) of a frame split by rows
+// (--mesh_spatial) passes its rows' coordinates and cotangent and the
+// whole gathered frame: grad_coords is its rows', grad_img the whole
+// frame's (zero-filled by the caller), which the ranks then sum (the
+// backward of allgather_rows, demfi_torch/parallel/halo.py). Everything
+// after the tap positions works in the image's rows, so the box of a query
+// tile sits where its taps do, whatever row0 is. Relative mode needs
+// Wq == W and row0 + Hq <= H.
+//
 // Image values: float32 (demfi_bilinear_gather_bwd_f32) or bfloat16
 // (demfi_bilinear_gather_bwd_bf16), as in the forward: a bf16 tap is
 // widened to float32 exactly. grad_coords is float32 either way. grad_img
@@ -181,7 +193,7 @@ bilinear_gather_bwd_kernel(const T* __restrict__ img_a,
                            float* __restrict__ grad_coords,
                            unsigned long long* __restrict__ route_stats,
                            int n, int C, int H, int W, int Hq, int Wq,
-                           int relative, int vec) {
+                           int relative, int row0, int vec) {
   extern __shared__ __align__(16) int box[];   // kBoxWords
   __shared__ int part[kWarps][5];
   const int tid = threadIdx.y * kTX + threadIdx.x;
@@ -216,7 +228,7 @@ bilinear_gather_bwd_kernel(const T* __restrict__ img_a,
     float qy = __ldg(coords + (int64_t)b * 2 * nq + nq + q);
     if (relative) {
       qx = __fadd_rn((float)x, qx);
-      qy = __fadd_rn((float)y, qy);
+      qy = __fadd_rn((float)(y + row0), qy);
     }
     const float xf = floorf(qx);
     const float yf = floorf(qy);
@@ -435,20 +447,23 @@ round_to_bf16_kernel(const float* __restrict__ src,
 // [n,2,Hq,Wq] and gout_a [n,C,Hq,Wq]; img_b, coords_b, gout_b: the second
 // half of the same shapes, or all null. grad_acc [halves*n,C,H,W] float32,
 // zeroed by the caller, takes the scatter; grad_coords [halves*n,2,Hq,Wq],
-// written in full; route_stats: two uint64 on the device, or null. The
-// image T, the rest float32; all contiguous, on one device; H*W and Hq*Wq
-// below 2^31. Launches on `stream` and returns cudaGetLastError().
+// written in full; route_stats: two uint64 on the device, or null; row0:
+// the image row of query row 0 (relative mode; 0 for a whole frame and in
+// absolute mode). The image T, the rest float32; all contiguous, on one
+// device; H*W and Hq*Wq below 2^31. Launches on `stream` and returns
+// cudaGetLastError().
 template <typename T>
 int launch_gather_bwd(const T* img_a, const T* img_b, const float* coords_a,
                       const float* coords_b, const float* gout_a,
                       const float* gout_b, float* grad_acc,
                       float* grad_coords, unsigned long long* route_stats,
                       int n, int C, int H, int W, int Hq, int Wq,
-                      int relative, cudaStream_t stream) {
+                      int relative, int row0, cudaStream_t stream) {
   const bool pair = img_b != nullptr;
   if (pair != (coords_b != nullptr) || pair != (gout_b != nullptr) ||
       H <= 0 || W <= 0 || C < 0 || (int64_t)H * W > INT32_MAX ||
-      (int64_t)Hq * Wq > INT32_MAX)
+      (int64_t)Hq * Wq > INT32_MAX || row0 < 0 || (!relative && row0 != 0) ||
+      (relative && (Wq != W || (int64_t)row0 + Hq > H)))
     return (int)cudaErrorInvalidValue;
   const int64_t batch = (int64_t)n * (pair ? 2 : 1);
   const int64_t gy = (Hq + kTY - 1) / kTY;
@@ -465,7 +480,7 @@ int launch_gather_bwd(const T* img_a, const T* img_b, const float* coords_a,
                   (unsigned)batch);
   bilinear_gather_bwd_kernel<T><<<grid, dim3(kTX, kTY), kShared, stream>>>(
       img_a, img_b, coords_a, coords_b, gout_a, gout_b, grad_acc,
-      grad_coords, route_stats, n, C, H, W, Hq, Wq, relative, vec);
+      grad_coords, route_stats, n, C, H, W, Hq, Wq, relative, row0, vec);
   return (int)cudaGetLastError();
 }
 
@@ -477,11 +492,12 @@ extern "C" int demfi_bilinear_gather_bwd_f32(
     const float* img_a, const float* img_b, const float* coords_a,
     const float* coords_b, const float* gout_a, const float* gout_b,
     float* grad_img, float* grad_coords, unsigned long long* route_stats,
-    int n, int C, int H, int W, int Hq, int Wq, int relative, void* stream) {
+    int n, int C, int H, int W, int Hq, int Wq, int relative, int row0,
+    void* stream) {
   if (n <= 0 || Hq <= 0 || Wq <= 0) return (int)cudaSuccess;
   return launch_gather_bwd(img_a, img_b, coords_a, coords_b, gout_a, gout_b,
                            grad_img, grad_coords, route_stats, n, C, H, W,
-                           Hq, Wq, relative, (cudaStream_t)stream);
+                           Hq, Wq, relative, row0, (cudaStream_t)stream);
 }
 
 // bfloat16 image values (their 16 bits): the scatter adds into grad_acc
@@ -492,12 +508,12 @@ extern "C" int demfi_bilinear_gather_bwd_bf16(
     const float* coords_b, const float* gout_a, const float* gout_b,
     float* grad_acc, void* grad_img, float* grad_coords,
     unsigned long long* route_stats, int n, int C, int H, int W, int Hq,
-    int Wq, int relative, void* stream) {
+    int Wq, int relative, int row0, void* stream) {
   if (n <= 0 || Hq <= 0 || Wq <= 0) return (int)cudaSuccess;
   const cudaStream_t s = (cudaStream_t)stream;
   const int rc = launch_gather_bwd(img_a, img_b, coords_a, coords_b, gout_a,
                                    gout_b, grad_acc, grad_coords, route_stats,
-                                   n, C, H, W, Hq, Wq, relative, s);
+                                   n, C, H, W, Hq, Wq, relative, row0, s);
   if (rc != (int)cudaSuccess) return rc;
   const int64_t total = (int64_t)n * (img_b != nullptr ? 2 : 1) * C * H * W;
   if (total == 0) return (int)cudaSuccess;

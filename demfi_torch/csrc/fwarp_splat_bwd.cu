@@ -24,6 +24,15 @@
 // lies in the image; the same float test as fwarp_splat.cu) gets zero
 // gradients, finite.
 //
+// Rows of a split frame (--mesh_spatial), as in the forward (fwarp_splat.cu):
+// the source may be rows [r0, r0 + H) of a frame of Ho rows, its row y
+// being row y + r0 of the canvases that the cotangents grad_out [B,C,Ho,W]
+// and grad_norm [B,1,Ho,W] cover (the whole frame's: the backward of the
+// ranks' canvas sum). grad_img and grad_flo are the source rows'. The base
+// row y + r0 is an int added to floor(flo) in float, as in the forward, so
+// a shard's gradients are the unsplit call's rows bit for bit (Ho = H and
+// r0 = 0 for a whole frame).
+//
 // Bound: device-memory bytes (read img, flo, grad_out and grad_norm once,
 // write grad_img and grad_flo once; a few flops per byte).
 //
@@ -66,7 +75,7 @@ fwarp_splat_bwd_kernel(const float* __restrict__ img_a,
                        const float* __restrict__ gnorm_b,
                        float* __restrict__ grad_img,
                        float* __restrict__ grad_flo, int B, int C_rt, int H,
-                       int W) {
+                       int W, int Ho, int r0) {
   const int C = kC > 0 ? kC : C_rt;
   constexpr int kNC = kC > 0 ? kC : 1;   // channels whose loads go together
   const int x = blockIdx.x * kTX + threadIdx.x;
@@ -75,12 +84,13 @@ fwarp_splat_bwd_kernel(const float* __restrict__ img_a,
   const int z = blockIdx.z;              // batch element of the outputs
   const bool second = z >= B;
   const int b = second ? z - B : z;
-  const int hw = H * W;
+  const int hw = H * W;     // a source plane
+  const int ohw = Ho * W;   // a canvas plane
   const int p = y * W + x;
   const float* src = (second ? img_b : img_a) + (int64_t)b * C * hw + p;
   const float* fl = (second ? flo_b : flo_a) + (int64_t)b * 2 * hw + p;
-  const float* g = (second ? gout_b : gout_a) + (int64_t)b * C * hw;
-  const float* gn = (second ? gnorm_b : gnorm_a) + (int64_t)b * hw;
+  const float* g = (second ? gout_b : gout_a) + (int64_t)b * C * ohw;
+  const float* gn = (second ? gnorm_b : gnorm_a) + (int64_t)b * ohw;
   float* gi = grad_img + (int64_t)z * C * hw + p;
   float* gf = grad_flo + (int64_t)z * 2 * hw + p;
 
@@ -90,11 +100,11 @@ fwarp_splat_bwd_kernel(const float* __restrict__ img_a,
   const float r1 = floorf(dr);
   const float fc = __fsub_rn(dc, c1);
   const float fr = __fsub_rn(dr, r1);
-  const float ftr = __fadd_rn((float)y, r1);
+  const float ftr = __fadd_rn((float)(y + r0), r1);
   const float ftc = __fadd_rn((float)x, c1);
   // false for NaN, infinities and huge flows, tested before any
   // conversion (fwarp_splat.cu's test)
-  if (!(ftr >= -1.0f && ftr < (float)H && ftc >= -1.0f && ftc < (float)W)) {
+  if (!(ftr >= -1.0f && ftr < (float)Ho && ftc >= -1.0f && ftc < (float)W)) {
     for (int c = 0; c < C; ++c) gi[(int64_t)c * hw] = 0.0f;
     gf[0] = 0.0f;
     gf[hw] = 0.0f;
@@ -108,7 +118,7 @@ fwarp_splat_bwd_kernel(const float* __restrict__ img_a,
   for (int k = 0; k < 4; ++k) {
     const int ddr = k >> 1, ddc = k & 1;
     const int r = tr + ddr, c = tc + ddc;
-    in[k] = r >= 0 && r < H && c >= 0 && c < W;
+    in[k] = r >= 0 && r < Ho && c >= 0 && c < W;
     const float a = __fsub_rn(fr, (float)ddr);
     const float d = __fsub_rn(fc, (float)ddc);
     wgt[k] = expf(-__fadd_rn(__fmul_rn(a, a), __fmul_rn(d, d)));
@@ -123,7 +133,7 @@ fwarp_splat_bwd_kernel(const float* __restrict__ img_a,
     float v[kNC], go[kNC][4];
 #pragma unroll
     for (int cc = 0; cc < kNC; ++cc) {
-      const float* gc = g + (int64_t)(c0 + cc) * hw;
+      const float* gc = g + (int64_t)(c0 + cc) * ohw;
       v[cc] = __ldg(src + (int64_t)(c0 + cc) * hw);
 #pragma unroll
       for (int k = 0; k < 4; ++k) go[cc][k] = in[k] ? __ldg(gc + t[k]) : 0.0f;
@@ -155,17 +165,20 @@ fwarp_splat_bwd_kernel(const float* __restrict__ img_a,
 }  // namespace
 
 // halves = 1 or 2 of equal shapes, a and b (b unread for one half):
-// img_* [B,C,H,W], flo_* [B,2,H,W], gout_* [B,C,H,W], gnorm_* [B,1,H,W];
+// img_* [B,C,H,W], flo_* [B,2,H,W], gout_* [B,C,Ho,W], gnorm_* [B,1,Ho,W];
 // grad_img [halves*B,C,H,W] and grad_flo [halves*B,2,H,W] written in full,
-// half a's batch elements first. All float32, contiguous, on one device;
-// H*W below 2^31. Launches on `stream` and returns cudaGetLastError().
+// half a's batch elements first. Source row y is canvas row y + r0 (Ho = H
+// and r0 = 0 for a whole frame). All float32, contiguous, on one device;
+// Ho*W below 2^31. Launches on `stream` and returns cudaGetLastError().
 extern "C" int demfi_fwarp_splat_bwd_f32(
     const float* img_a, const float* img_b, const float* flo_a,
     const float* flo_b, const float* gout_a, const float* gout_b,
     const float* gnorm_a, const float* gnorm_b, float* grad_img,
-    float* grad_flo, int halves, int B, int C, int H, int W, void* stream) {
+    float* grad_flo, int halves, int B, int C, int H, int W, int Ho, int r0,
+    void* stream) {
   if (B <= 0 || H <= 0 || W <= 0) return (int)cudaSuccess;
-  if (C < 0 || (halves != 1 && halves != 2) || (int64_t)H * W > INT32_MAX)
+  if (C < 0 || (halves != 1 && halves != 2) || (int64_t)Ho * W > INT32_MAX ||
+      r0 < 0 || (int64_t)r0 + H > Ho)
     return (int)cudaErrorInvalidValue;
   const int64_t gy = (H + kTY - 1) / kTY;
   if ((int64_t)halves * B > 65535 || gy > 65535)
@@ -177,10 +190,10 @@ extern "C" int demfi_fwarp_splat_bwd_f32(
   if (C == 2)
     fwarp_splat_bwd_kernel<2><<<grid, block, 0, st>>>(
         img_a, img_b, flo_a, flo_b, gout_a, gout_b, gnorm_a, gnorm_b,
-        grad_img, grad_flo, B, C, H, W);
+        grad_img, grad_flo, B, C, H, W, Ho, r0);
   else
     fwarp_splat_bwd_kernel<0><<<grid, block, 0, st>>>(
         img_a, img_b, flo_a, flo_b, gout_a, gout_b, gnorm_a, gnorm_b,
-        grad_img, grad_flo, B, C, H, W);
+        grad_img, grad_flo, B, C, H, W, Ho, r0);
   return (int)cudaGetLastError();
 }

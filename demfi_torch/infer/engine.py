@@ -220,16 +220,19 @@ class InferenceEngine:
             self._card_ranks = sum(int(p.item()) == mine for p in parts)
 
     def shard(self, h: int) -> Optional[RowShard]:
-        """This rank's rows of a padded frame of h rows, or None where
-        it computes whole frames: no spatial axis, or h not a multiple of
-        it (printed once per height)."""
-        shard = self.grid.shard(h)
+        """This rank's rows of a padded frame of h rows (blocks of the
+        model's row stride, the first ranks taking one more where the
+        blocks do not share out evenly), or None where it computes whole
+        frames: no spatial axis, h not a multiple of it or of the stride,
+        or fewer blocks than ranks (printed once per height)."""
+        shard = self.grid.shard(h, self.model.row_stride)
         if (shard is None and self.grid.spatial > 1
                 and h not in self._whole_heights):
             self._whole_heights.add(h)
             print(f"[mesh_spatial {self.grid.spatial}] a {h}-row padded "
-                  f"frame does not split into {self.grid.spatial} equal "
-                  f"row blocks: every rank of the group runs it whole")
+                  f"frame does not split into {self.grid.spatial} blocks "
+                  f"of {self.model.row_stride}-row multiples: every rank "
+                  f"of the group runs it whole")
         return shard
 
     def _agreed_min(self, value: Optional[int]) -> Optional[int]:
@@ -379,9 +382,12 @@ class InferenceEngine:
                    / BYTES_PER_PIXEL_INSTANT[self.model.compute_dtype])
 
     def _local_rows(self, h: int) -> int:
-        """Rows of a frame of h rows (padded) that this rank computes."""
-        shard = self.grid.shard(h)
-        return h if shard is None else shard.rows
+        """Rows of a frame of h rows (padded) that the busiest rank of
+        this rank's group computes, so that every rank budgets alike."""
+        shard = self.grid.shard(h, self.model.row_stride)
+        if shard is None:
+            return h
+        return max(b - a for a, b in map(shard.span, range(shard.size)))
 
     def _effective_t_chunk(self, h, w, m, test_patch=(1, 1), n_windows=1):
         """User cap if given, else the memory-derived one (per-tile pixels

@@ -25,13 +25,16 @@ every global batch; ``--phase test`` and ``test_custom`` give each
 process whole scenes, round-robin, and sum the meters across them.
 ``--dist_backend gloo`` lets processes share one card.
 
-Rows across cards (``--phase test|test_custom --mesh_spatial S``, the
-JAX package's mesh flags): the P processes form P / S data groups of S
-consecutive ranks; a group shares out scenes as one process does, and
-its ranks each compute S-th of every frame's rows, exactly
-(``demfi_torch.parallel.make_grid``). ``--mesh_data`` must be P / S, or
-0 for that (its default, 1, is taken too where S = 1). Training's spatial axis is a later slice:
-``--phase train --mesh_spatial S`` with S > 1 is refused.
+Rows across cards (``--mesh_spatial S``, the JAX package's mesh flags,
+in every phase): the P processes form P / S data groups of S consecutive
+ranks; a group shares out scenes, or loads its share of every global
+batch, as one process does, and its ranks each compute a block of every
+frame's rows, exactly (``demfi_torch.parallel.make_grid``: blocks of 8
+rows, the first ranks taking one more where they do not share out
+evenly). ``--mesh_data`` must be P / S, or 0 for that (its default, 1,
+is taken too where S = 1). Training then sums the gradients over each
+group's ranks and averages them over the groups
+(``demfi_torch.train.make_train_step``).
 """
 from __future__ import annotations
 
@@ -141,7 +144,7 @@ def parse_args(argv=None) -> DeMFIConfig:
                         "without --mesh_spatial)")
     p.add_argument("--mesh_spatial", type=int, default=d.mesh_spatial,
                    help="processes of a data group that split each "
-                        "frame's rows (--phase test and test_custom)")
+                        "frame's rows")
     p.add_argument("--auto_resume", action="store_true",
                    help="resume from the latest checkpoint if one exists")
     p.add_argument("--seed", type=int, default=d.seed)
@@ -168,12 +171,6 @@ def parse_args(argv=None) -> DeMFIConfig:
         p.error("--fwarp_shift_d must be >= 0")
     if a.mesh_spatial < 1 or a.mesh_data < 0:
         p.error("--mesh_spatial must be >= 1 and --mesh_data >= 0")
-    if a.phase == "train" and a.mesh_spatial > 1:
-        p.error(f"--phase train --mesh_spatial {a.mesh_spatial}: training's "
-                f"spatial axis is a later slice of the port (it needs a "
-                f"backward for the halo exchange and the row-offset "
-                f"warps); --mesh_spatial serves --phase test and "
-                f"test_custom")
 
     fields = {f.name for f in dataclasses.fields(DeMFIConfig)}
     kwargs = {k: v for k, v in vars(a).items() if k in fields}
@@ -256,10 +253,15 @@ def run_train(cfg: DeMFIConfig) -> dict:
 
     In a process group (the coordinator flags) the model is wrapped in
     ``DistributedDataParallel`` and each process steps on its share of
-    every global batch. Process 0 decides whether to resume and hands its
-    restored state to the others; it alone writes checkpoints, the text
-    log, TensorBoard and debug sheets, and runs the validation passes;
-    the final evaluation is shared out by scenes."""
+    every global batch. With ``--mesh_spatial S`` each data group of S
+    processes loads one share, each of its ranks computes its rows of it,
+    and the step sums the gradients itself (no DDP); validation and the
+    final evaluation run on the grid, as ``--phase test`` does. Process
+    0 decides whether to resume and hands its restored state to the
+    others; it alone writes checkpoints, the text log, TensorBoard and
+    debug sheets (of whole frames, with no collective); without a
+    spatial axis it alone runs the validation passes; the final
+    evaluation is shared out by scenes."""
     from demfi_torch.parallel import destroy_distributed
 
     cfg, pid, pcount = _join(cfg)
@@ -286,26 +288,33 @@ def _train(cfg: DeMFIConfig, pid: int, pcount: int) -> dict:
                                           model_summary)
     from demfi_torch.utils.profiling import StepTimer
 
-    make_grid(cfg.mesh_data, 1)       # refuses a --mesh_data that is not P
+    # refuses a --mesh_data that is not P / S
+    grid = make_grid(cfg.mesh_data, cfg.mesh_spatial)
+    spatial = grid.spatial > 1
     is_main = pid == 0
     em = AsyncExperimentManager(cfg) if is_main else None
     model = make_model(cfg, device=cfg.device)
     device = next(model.parameters()).device
     net = model
-    if dist.is_initialized():
+    if spatial:
+        print(f"mesh: {grid.data} data group(s) x {grid.spatial} ranks "
+              f"splitting rows; this is rank {grid.spatial_index} of data "
+              f"group {grid.data_index} ({dist.get_backend()} on {device})")
+    elif dist.is_initialized():
         net = data_parallel(model, cfg.N_trn)
         print(f"data parallel: process {pid} of {pcount}, "
               f"DistributedDataParallel on {device} ({dist.get_backend()})")
     state = create_train_state(cfg, net)
     if is_main:
         print(model_summary(model))
-    step = make_train_step(cfg)
+    step = make_train_step(cfg, grid)
     writer = _writer(cfg) if is_main else None
 
     def engine(num_update):
         return InferenceEngine(model, num_update, t_chunk=cfg.t_chunk or None,
                                fetch="full" if cfg.visualization_flag
-                               else "images", device=device)
+                               else "images", device=device,
+                               grid=grid if spatial else None)
 
     start_epoch = 0
     best_psnr = 0.0
@@ -333,8 +342,10 @@ def _train(cfg: DeMFIConfig, pid: int, pcount: int) -> dict:
 
     ds = AdobeTrainDataset(cfg.train_data_path, cfg.t_sampling_num,
                            cfg.patch_size, cfg.need_patch)
+    # the ranks of a data group load the same share of every batch
     loader = TrainLoader(ds, cfg.batch_size, cfg.num_thrds, cfg.seed,
-                         process_id=pid, process_count=pcount)
+                         process_id=grid.data_index,
+                         process_count=grid.data)
     timer = StepTimer(device)
     if is_main:
         em.write_info("Epoch\tintp_testPSNR\tdeblur_testPSNR\tavg_testPSNR"
@@ -371,14 +382,16 @@ def _train(cfg: DeMFIConfig, pid: int, pcount: int) -> dict:
                 _save_debug(cfg, model, it, frames, ts)
         epoch_losses.append(losses.avg)
 
-        if is_main and ((epoch + 1) % cfg.epoch_freq_display == 0
-                        or epoch == 0):
+        if ((is_main or spatial)
+                and ((epoch + 1) % cfg.epoch_freq_display == 0
+                     or epoch == 0)):
             results = evaluate(cfg, engine(cfg.N_trn), multiple=2,
                                epoch=epoch, center_patch=cfg.patch_size,
                                test_type="valid_5_per_scene",
                                post_fix="_x2_valid_5_intervals",
                                writer=writer,
-                               window_batch=cfg.eval_window_batch)
+                               window_batch=cfg.eval_window_batch,
+                               grid=grid if spatial else None)
             model.train()
         test_loss, intp_p, intp_s, dblr_p, dblr_s, _ = results
         score = (intp_p + dblr_p) / 2
@@ -407,7 +420,7 @@ def _train(cfg: DeMFIConfig, pid: int, pcount: int) -> dict:
                               f"_Ntst{cfg.N_tst}",
                      test_patch=cfg.test_patch, writer=writer,
                      window_batch=cfg.eval_window_batch,
-                     shard=(pid, pcount))
+                     shard=(pid, pcount), grid=grid if spatial else None)
     if is_main:
         em.close()
     if writer:

@@ -38,7 +38,13 @@ normalisations reduce over the whole frame. Space-to-depth, the pixel
 shuffle and the nearest up-sampling are row-local when the shard's rows
 and first row are multiples of the network's total stride
 (:attr:`DeMFINet.row_stride`). Without a shard (the attribute ``shard``
-is None on every module) the code is the unsplit model's.
+is None on every module) the code is the unsplit model's. The split
+model trains as well as it serves: every collective it makes has a
+backward (``demfi_torch.parallel.halo``), so the gradients of a shard's
+rows, summed over the group, are the unsplit model's. A remat'd backbone
+recomputes its convolutions, halo exchanges included, in the backward
+pass, which must therefore run inside :meth:`DeMFINet.rows` as the
+forward did (``make_train_step`` does so).
 """
 from __future__ import annotations
 
@@ -595,8 +601,11 @@ class DeMFINet(nn.Module):
         """Within the block the model computes on ``shard``'s rows of a
         frame (a :class:`~demfi_torch.parallel.RowShard`; None: the whole
         frame): its inputs are those rows, and so are its outputs, those
-        of the whole frame's forward. Serving only. Refuses a shard whose
-        rows or first row are not multiples of :attr:`row_stride`."""
+        of the whole frame's forward, for serving and for training (a
+        backward pass, remat's recomputation included, runs inside the
+        block too). ``Grid.shard`` cuts frames at multiples of
+        :attr:`row_stride`; a shard made by hand whose rows or first row
+        are not is refused."""
         if shard is not None and (shard.rows % self.row_stride
                                   or shard.r0 % self.row_stride):
             raise ValueError(
@@ -605,9 +614,7 @@ class DeMFINet(nn.Module):
                 f"must be multiples of the network's total stride "
                 f"{self.row_stride} (space-to-depth "
                 f"{self.FF_RDB_Module.scale_factor}, three stride-2 "
-                f"encoders), so the padded "
-                f"height must be a multiple of {self.row_stride} x "
-                f"{shard.size} to split it {shard.size} ways")
+                f"encoders), as demfi_torch.parallel.Grid.shard cuts them")
         with rows_of(self, shard):
             yield self
 

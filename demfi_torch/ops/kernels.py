@@ -66,14 +66,18 @@ Two more carry their gradients. The JAX package's fast paths are
       taps spread beyond the box adds straight to global memory, in the
       same launch), a per-pixel sum over channels for the coordinates'.
       For a bfloat16 image the scatter adds into a float32 scratch plane
-      that a second launch rounds to bfloat16 once.
+      that a second launch rounds to bfloat16 once. ``row0`` as the
+      forward's: the query rows of a shard of a frame split by rows, on
+      the whole gathered frame, whose image gradient is the whole
+      frame's.
   ``fwarp_splat_bwd`` (csrc/fwarp_splat_bwd.cu): the vjp of the forward
       warp (of ``_fwarp_xla``, :549), whichever kernel served the
       forward: a gather over each source pixel's four corners, no
       atomics, the same bits every run. :func:`fwarp_pair` (CFR's two
       forward warps) takes its backward as one launch on both halves
       (:func:`fwarp_splat_bwd_pair`): the kernel's grid covers one half
-      or two.
+      or two. ``rows=(r0, Ho)`` as the forward's: a shard's source rows,
+      its cotangents the whole frame's canvases.
 
 Autograd: on the card, a call whose inputs require grad (with grad
 enabled) goes through a ``torch.autograd.Function`` that saves only its
@@ -203,17 +207,18 @@ def _bind(name: str, lib: ctypes.CDLL) -> ctypes.CDLL:
         fns[0].argtypes = [vp] * 7 + [i] * 6 + [vp]
     elif name == "bilinear_gather_bwd":
         # img_a, img_b, coords_a, coords_b, gout_a, gout_b, grad_img,
-        # grad_coords, route_stats, n, C, H, W, Hq, Wq, relative, stream;
-        # at bfloat16 the float32 scratch plane comes before grad_img
+        # grad_coords, route_stats, n, C, H, W, Hq, Wq, relative, row0,
+        # stream; at bfloat16 the float32 scratch plane comes before
+        # grad_img
         fns = [lib.demfi_bilinear_gather_bwd_f32,
                lib.demfi_bilinear_gather_bwd_bf16]
-        fns[0].argtypes = [vp] * 9 + [i] * 7 + [vp]
-        fns[1].argtypes = [vp] * 10 + [i] * 7 + [vp]
+        fns[0].argtypes = [vp] * 9 + [i] * 8 + [vp]
+        fns[1].argtypes = [vp] * 10 + [i] * 8 + [vp]
     elif name == "fwarp_splat_bwd":
         fns = [lib.demfi_fwarp_splat_bwd_f32]
         # img_a, img_b, flo_a, flo_b, gout_a, gout_b, gnorm_a, gnorm_b,
-        # grad_img, grad_flo, halves, B, C, H, W, stream
-        fns[0].argtypes = [vp] * 10 + [i] * 5 + [vp]
+        # grad_img, grad_flo, halves, B, C, H, W, Ho, r0, stream
+        fns[0].argtypes = [vp] * 10 + [i] * 7 + [vp]
     else:
         fns = [lib.demfi_fwarp_shift_f32]
         # img, flo, out, norm, flag, served, row_stats, B, C, H, W, Ho,
@@ -329,11 +334,12 @@ def _launch_gather(halves, relative: bool, want_ones: bool,
     return out, ones
 
 
-def _launch_gather_bwd(halves, relative: bool, route_stats=None):
+def _launch_gather_bwd(halves, relative: bool, route_stats=None,
+                       row0: Optional[int] = None):
     """One launch of the gather's backward kernel on one or two (img,
     coords, grad_out) halves of equal shapes. Returns (grad_img,
     grad_coords) over all halves' batch elements, the first half's
-    first."""
+    first; grad_img is the whole image's, also for a row0."""
     (img, coords, gout) = halves[0]
     _check("bilinear_gather_bwd", *(t for half in halves for t in half[1:]),
            images=tuple(half[0] for half in halves))
@@ -343,10 +349,7 @@ def _launch_gather_bwd(halves, relative: bool, route_stats=None):
         raise ValueError(f"bilinear_gather_bwd: coords {tuple(coords.shape)} "
                          f"for img {tuple(img.shape)}")
     hq, wq = coords.shape[2:]
-    if relative and (hq, wq) != (h, w):
-        raise ValueError("bilinear_gather_bwd: relative mode needs the query "
-                         "grid to equal the image grid (the row-offset "
-                         "gather has no backward yet)")
+    _check_rows("bilinear_gather_bwd", relative, h, w, hq, wq, row0)
     if tuple(gout.shape) != (n, c, hq, wq):
         raise ValueError(f"bilinear_gather_bwd: grad_out {tuple(gout.shape)} "
                          f"for an output {(n, c, hq, wq)}")
@@ -370,7 +373,8 @@ def _launch_gather_bwd(halves, relative: bool, route_stats=None):
             gout.data_ptr(), gout_b)
     tail = (grad_coords.data_ptr(),
             None if route_stats is None else route_stats.data_ptr(),
-            n, c, h, w, hq, wq, int(relative), _raw_stream(img.device))
+            n, c, h, w, hq, wq, int(relative), int(row0 or 0),
+            _raw_stream(img.device))
     lib = build()["bilinear_gather_bwd"]
     if img.dtype == torch.float32:
         grad_img = grad_acc
@@ -394,10 +398,11 @@ class _Gather(torch.autograd.Function):
     the mask, a comparison)."""
 
     @staticmethod
-    def forward(ctx, img, coords, relative, want_ones):
-        out, ones = _launch_gather([(img, coords)], relative, want_ones)
+    def forward(ctx, img, coords, relative, want_ones, row0=None):
+        out, ones = _launch_gather([(img, coords)], relative, want_ones,
+                                   row0=row0)
         ctx.save_for_backward(img, coords)
-        ctx.relative = relative
+        ctx.relative, ctx.row0 = relative, row0
         if ones is not None:
             ctx.mark_non_differentiable(ones)
         return out, ones
@@ -406,29 +411,30 @@ class _Gather(torch.autograd.Function):
     def backward(ctx, grad_out, _grad_ones):
         img, coords = ctx.saved_tensors
         grad_img, grad_coords = _launch_gather_bwd(
-            [(img, coords, grad_out.contiguous())], ctx.relative)
-        return grad_img, grad_coords, None, None
+            [(img, coords, grad_out.contiguous())], ctx.relative,
+            row0=ctx.row0)
+        return grad_img, grad_coords, None, None, None
 
 
 def _launch_gather_pair(img_a, img_b, coords_a, coords_b, relative: bool,
                         want_ones: bool, row0: Optional[int] = None):
     """One launch on two halves, split back into ((out_a, out_b),
     (ones_a, ones_b) or None): views of one allocation."""
-    rows = {} if row0 is None else {"row0": row0}
     out, ones = _launch_gather([(img_a, coords_a), (img_b, coords_b)],
-                               relative, want_ones, **rows)
+                               relative, want_ones, row0=row0)
     n = img_a.shape[0]
     return (out[:n], out[n:]), (None if ones is None
                                 else (ones[:n], ones[n:]))
 
 
 def _launch_gather_pair_bwd(img_a, img_b, coords_a, coords_b, grad_a,
-                            grad_b, relative: bool, route_stats=None):
+                            grad_b, relative: bool, route_stats=None,
+                            row0: Optional[int] = None):
     """One backward launch on two halves, split back into
     ((grad_img_a, grad_img_b), (grad_coords_a, grad_coords_b))."""
     grad_img, grad_coords = _launch_gather_bwd(
         [(img_a, coords_a, grad_a), (img_b, coords_b, grad_b)], relative,
-        route_stats)
+        route_stats, row0=row0)
     n = img_a.shape[0]
     return ((grad_img[:n], grad_img[n:]), (grad_coords[:n], grad_coords[n:]))
 
@@ -438,11 +444,12 @@ class _GatherPair(torch.autograd.Function):
     one allocation), each with its own gradient; one backward launch."""
 
     @staticmethod
-    def forward(ctx, img_a, img_b, coords_a, coords_b, relative, want_ones):
+    def forward(ctx, img_a, img_b, coords_a, coords_b, relative, want_ones,
+                row0=None):
         outs, ones = _launch_gather_pair(img_a, img_b, coords_a, coords_b,
-                                         relative, want_ones)
+                                         relative, want_ones, row0)
         ctx.save_for_backward(img_a, img_b, coords_a, coords_b)
-        ctx.relative = relative
+        ctx.relative, ctx.row0 = relative, row0
         if ones is None:
             return outs + (None, None)
         ctx.mark_non_differentiable(*ones)
@@ -452,18 +459,8 @@ class _GatherPair(torch.autograd.Function):
     def backward(ctx, grad_a, grad_b, _grad_ones_a, _grad_ones_b):
         (gi_a, gi_b), (gc_a, gc_b) = _launch_gather_pair_bwd(
             *ctx.saved_tensors, grad_a.contiguous(), grad_b.contiguous(),
-            ctx.relative)
-        return gi_a, gi_b, gc_a, gc_b, None, None
-
-
-def _serving_rows(name: str, *tensors: torch.Tensor) -> None:
-    """Refuse the rows of a split frame under autograd: the row-offset
-    kernels have no backward yet (training's spatial axis is a later
-    slice)."""
-    if _needs_grad(*tensors):
-        raise NotImplementedError(
-            f"{name}: the rows of a split frame serve only; the row-offset "
-            f"kernels have no backward yet")
+            ctx.relative, row0=ctx.row0)
+        return gi_a, gi_b, gc_a, gc_b, None, None, None
 
 
 def bilinear_gather(img: torch.Tensor, coords: torch.Tensor, relative: bool,
@@ -479,10 +476,9 @@ def bilinear_gather(img: torch.Tensor, coords: torch.Tensor, relative: bool,
     at the absolute coords on any query grid and return (out, None).
     row0 (relative mode): the query grid is rows [row0, row0 + Hq) of
     the image grid, as for the rows that a card holds of a frame split
-    by rows; serving only. Differentiable in img and coords without row0
-    (on the card by :func:`bilinear_gather_bwd`)."""
-    if row0 is not None:
-        _serving_rows("bilinear_gather", img, coords)
+    by rows. Differentiable in img and coords (on the card by
+    :func:`bilinear_gather_bwd`; with a row0 the image's gradient is the
+    whole image's)."""
     if img.device.type == "cpu" and coords.device.type == "cpu":
         _check_rows("bilinear_gather", relative, *img.shape[2:],
                     *coords.shape[2:], row0)
@@ -490,7 +486,7 @@ def bilinear_gather(img: torch.Tensor, coords: torch.Tensor, relative: bool,
                                                 row0 or 0)
         return out, ones if want_ones else None
     if _needs_grad(img, coords):
-        return _Gather.apply(img, coords, relative, want_ones)
+        return _Gather.apply(img, coords, relative, want_ones, row0)
     return _launch_gather([(img, coords)], relative, want_ones, row0)
 
 
@@ -510,18 +506,15 @@ def bilinear_gather_pair(img_a: torch.Tensor, img_b: torch.Tensor,
     gradient, and the backward is one launch too. row0 as for
     :func:`bilinear_gather`."""
     tensors = (img_a, img_b, coords_a, coords_b)
-    if row0 is not None:
-        _serving_rows("bilinear_gather_pair", *tensors)
     if all(t.device.type == "cpu" for t in tensors):
-        rows = {} if row0 is None else {"row0": row0}
         out_a, ones_a = bilinear_gather(img_a, coords_a, relative, want_ones,
-                                        **rows)
+                                        row0=row0)
         out_b, ones_b = bilinear_gather(img_b, coords_b, relative, want_ones,
-                                        **rows)
+                                        row0=row0)
         return (out_a, out_b), (None if ones_a is None else (ones_a, ones_b))
     if _needs_grad(*tensors):
         out_a, out_b, ones_a, ones_b = _GatherPair.apply(
-            img_a, img_b, coords_a, coords_b, relative, want_ones)
+            img_a, img_b, coords_a, coords_b, relative, want_ones, row0)
         return (out_a, out_b), (None if ones_a is None else (ones_a, ones_b))
     return _launch_gather_pair(img_a, img_b, coords_a, coords_b, relative,
                                want_ones, row0)
@@ -529,7 +522,8 @@ def bilinear_gather_pair(img_a: torch.Tensor, img_b: torch.Tensor,
 
 def bilinear_gather_bwd(img: torch.Tensor, coords: torch.Tensor,
                         relative: bool, grad_out: torch.Tensor,
-                        route_stats: Optional[torch.Tensor] = None
+                        route_stats: Optional[torch.Tensor] = None,
+                        row0: Optional[int] = None
                         ) -> Tuple[torch.Tensor, torch.Tensor]:
     """The vjp of :func:`bilinear_gather`'s first output: (grad_img
     [B,C,H,W] in the image's dtype, grad_coords [B,2,Hq,Wq] float32) for
@@ -541,12 +535,16 @@ def bilinear_gather_bwd(img: torch.Tensor, coords: torch.Tensor,
     route_stats, for measurement on the card: an int64 [2] tensor to
     which the kernel adds its 32x8 query tiles that scattered through
     the shared-memory box and those that added straight to global
-    memory."""
+    memory.
+    row0 as for :func:`bilinear_gather`: grad_out and grad_coords are the
+    query rows', grad_img the whole image's."""
     if all(t.device.type == "cpu" for t in (img, coords, grad_out)):
+        _check_rows("bilinear_gather_bwd", relative, *img.shape[2:],
+                    *coords.shape[2:], row0)
         return _warp.bilinear_gather_plain_vjp(img, coords, relative,
-                                               grad_out)
+                                               grad_out, row0 or 0)
     return _launch_gather_bwd([(img, coords, grad_out)], relative,
-                              route_stats)
+                              route_stats, row0=row0)
 
 
 bilinear_gather_bwd.launches = 0
@@ -555,17 +553,20 @@ bilinear_gather_bwd.bf16_launches = 0
 
 def bilinear_gather_pair_bwd(img_a, img_b, coords_a, coords_b, grad_a,
                              grad_b, relative: bool,
-                             route_stats: Optional[torch.Tensor] = None):
+                             route_stats: Optional[torch.Tensor] = None,
+                             row0: Optional[int] = None):
     """:func:`bilinear_gather_bwd` of two halves of equal shapes in one
     launch (counted in ``bilinear_gather_bwd.launches``). Returns
     ((grad_img_a, grad_img_b), (grad_coords_a, grad_coords_b))."""
     tensors = (img_a, img_b, coords_a, coords_b, grad_a, grad_b)
     if all(t.device.type == "cpu" for t in tensors):
-        gi_a, gc_a = bilinear_gather_bwd(img_a, coords_a, relative, grad_a)
-        gi_b, gc_b = bilinear_gather_bwd(img_b, coords_b, relative, grad_b)
+        gi_a, gc_a = bilinear_gather_bwd(img_a, coords_a, relative, grad_a,
+                                         row0=row0)
+        gi_b, gc_b = bilinear_gather_bwd(img_b, coords_b, relative, grad_b,
+                                         row0=row0)
         return (gi_a, gi_b), (gc_a, gc_b)
     return _launch_gather_pair_bwd(img_a, img_b, coords_a, coords_b, grad_a,
-                                   grad_b, relative, route_stats)
+                                   grad_b, relative, route_stats, row0)
 
 
 def _served_counter(device: torch.device) -> torch.Tensor:
@@ -667,6 +668,30 @@ def _guarded_fwd(img, flo, d):
     return out, norm
 
 
+def _splat_bwd_on(geometry, *halves):
+    """The backward kernel's launch on (img, flo, grad_out, grad_norm)
+    halves of a forward warp whose outputs have ``geometry``: None, the
+    image's rows; ("canvas", r0, Ho), a canvas of Ho rows with the
+    image's rows at r0 (a shard's splat); ("crop", row_off, Ho), rows
+    [row_off, row_off + Ho) of the image's (the stencil on a shard's rows
+    and halo), whose cotangent goes into zeros of the image's rows."""
+    halves = [(img, flo, go.contiguous(), gn.contiguous())
+              for img, flo, go, gn in halves]
+    if geometry is None:
+        return _launch_splat_bwd(*halves)
+    kind, r0, ho = geometry
+    if kind == "canvas":
+        return _launch_splat_bwd(*halves, rows=(r0, ho))
+    padded = []
+    for img, flo, go, gn in halves:
+        b, c, h, w = img.shape
+        full = [g.new_zeros((b, g.shape[1], h, w)) for g in (go, gn)]
+        for f, g in zip(full, (go, gn)):
+            f[:, :, r0:r0 + ho] = g
+        padded.append((img, flo, *full))
+    return _launch_splat_bwd(*padded)
+
+
 class _Fwarp(torch.autograd.Function):
     """A forward warp kernel under autograd (``forward`` one of
     :func:`_splat_fwd`, :func:`_shift_fwd`, :func:`_guarded_fwd`, given
@@ -679,14 +704,27 @@ class _Fwarp(torch.autograd.Function):
     def forward(ctx, img, flo, forward, *args):
         ctx.save_for_backward(img, flo)
         ctx.n_args = len(args)
+        ctx.geometry = None
         return forward(img, flo, *args)
 
     @staticmethod
     def backward(ctx, grad_out, grad_norm):
         img, flo = ctx.saved_tensors
-        (grad_img, grad_flo), = _launch_splat_bwd(
-            (img, flo, grad_out.contiguous(), grad_norm.contiguous()))
+        (grad_img, grad_flo), = _splat_bwd_on(
+            ctx.geometry, (img, flo, grad_out, grad_norm))
         return (grad_img, grad_flo, None) + (None,) * ctx.n_args
+
+
+class _FwarpRows(_Fwarp):
+    """:class:`_Fwarp` of a forward warp on the rows of a split frame,
+    its outputs' ``geometry`` (:func:`_splat_bwd_on`) given first."""
+
+    @staticmethod
+    def forward(ctx, img, flo, geometry, forward, *args):
+        out = _Fwarp.forward(ctx, img, flo, forward, *args)
+        ctx.geometry = geometry
+        ctx.n_args += 1
+        return out
 
 
 def _fwarp_call(img, flo, forward, *args):
@@ -705,45 +743,84 @@ class _FwarpPair(torch.autograd.Function):
     def forward(ctx, img_a, flo_a, img_b, flo_b, forward, *args):
         ctx.save_for_backward(img_a, flo_a, img_b, flo_b)
         ctx.n_args = len(args)
+        ctx.geometry = None
         return forward(img_a, flo_a, *args) + forward(img_b, flo_b, *args)
 
     @staticmethod
     def backward(ctx, go_a, gn_a, go_b, gn_b):
         img_a, flo_a, img_b, flo_b = ctx.saved_tensors
-        (gi_a, gf_a), (gi_b, gf_b) = _launch_splat_bwd(
-            (img_a, flo_a, go_a.contiguous(), gn_a.contiguous()),
-            (img_b, flo_b, go_b.contiguous(), gn_b.contiguous()))
+        (gi_a, gf_a), (gi_b, gf_b) = _splat_bwd_on(
+            ctx.geometry, (img_a, flo_a, go_a, gn_a),
+            (img_b, flo_b, go_b, gn_b))
         return (gi_a, gf_a, gi_b, gf_b, None) + (None,) * ctx.n_args
 
 
-def _fwarp_one(img, flo, d):
+class _FwarpPairRows(_FwarpPair):
+    """:class:`_FwarpPair` on the rows of a split frame, its outputs'
+    ``geometry`` (:func:`_splat_bwd_on`) given first."""
+
+    @staticmethod
+    def forward(ctx, img_a, flo_a, img_b, flo_b, geometry, forward, *args):
+        out = _FwarpPair.forward(ctx, img_a, flo_a, img_b, flo_b, forward,
+                                 *args)
+        ctx.geometry = geometry
+        ctx.n_args += 1
+        return out
+
+
+def _fwarp_one(img, flo, d, rows=None):
     """One forward warp as :func:`demfi_torch.ops.warp.fwarp` chooses it:
-    the splat for d <= 0, else the guarded pair of kernels."""
-    return fwarp_splat(img, flo) if d <= 0 else fwarp_guarded(img, flo, d)
+    the splat for d <= 0, else the guarded pair of kernels; with rows
+    and d > 0, the stencil on them (:func:`fwarp_shift`)."""
+    if d <= 0:
+        return fwarp_splat(img, flo, rows=rows)
+    if rows is not None:
+        return fwarp_shift(img, flo, d, rows=rows)
+    return fwarp_guarded(img, flo, d)
 
 
 def fwarp_pair(img_a: torch.Tensor, flo_a: torch.Tensor,
-               img_b: torch.Tensor, flo_b: torch.Tensor, d: int = 0):
+               img_b: torch.Tensor, flo_b: torch.Tensor, d: int = 0,
+               rows: Optional[Tuple[int, int]] = None):
     """Two forward warps of equal shapes, each as :func:`_fwarp_one`
     serves it (d as ``shift_d`` of :func:`demfi_torch.ops.warp.fwarp`).
     Returns ((out_a, norm_a), (out_b, norm_b)). On the card, under
     autograd, both backwards are one launch of the backward kernel
     (:func:`fwarp_splat_bwd_pair`); on the CPU the two warps are the two
-    single entries, plain versions under autograd."""
+    single entries, plain versions under autograd.
+    rows, on the rows of a frame split by rows: with d = 0, (r0, Ho) as
+    :func:`fwarp_splat` takes it (canvases of the whole frame); with
+    d > 0, (row_off, Ho) as :func:`fwarp_shift` takes it (the stencil,
+    unguarded, on a shard's rows and halo)."""
     if d > 0:
         _check_window("fwarp_pair", d)
     tensors = (img_a, flo_a, img_b, flo_b)
     if all(t.device.type == "cpu" for t in tensors):
-        return _fwarp_one(img_a, flo_a, d), _fwarp_one(img_b, flo_b, d)
+        return (_fwarp_one(img_a, flo_a, d, rows),
+                _fwarp_one(img_b, flo_b, d, rows))
     _check_fwarp("fwarp_pair", img_a, flo_a)
     _check_fwarp("fwarp_pair", img_b, flo_b)
     if img_a.shape != img_b.shape:
         raise ValueError(f"fwarp_pair: the two halves differ in shape: "
                          f"{tuple(img_a.shape)}, {tuple(img_b.shape)}")
-    forward, args = (_splat_fwd, (None,)) if d <= 0 else (_guarded_fwd, (d,))
+    if rows is None:
+        forward, args = ((_splat_fwd, (None,)) if d <= 0
+                         else (_guarded_fwd, (d,)))
+    elif d <= 0:
+        _check_canvas(img_a, rows)
+        forward, args, geometry = _canvas_fwd, (rows, None), "canvas"
+    else:
+        _check_crop("fwarp_pair", img_a, rows)
+        forward, args, geometry = _shift_rows_fwd, (d, rows, None), "crop"
     if _needs_grad(*tensors):
-        out_a, norm_a, out_b, norm_b = _FwarpPair.apply(
-            img_a, flo_a, img_b, flo_b, forward, *args)
+        if rows is None:
+            outs = _FwarpPair.apply(img_a, flo_a, img_b, flo_b, forward,
+                                    *args)
+        else:
+            outs = _FwarpPairRows.apply(img_a, flo_a, img_b, flo_b,
+                                        (geometry,) + tuple(rows), forward,
+                                        *args)
+        out_a, norm_a, out_b, norm_b = outs
         return (out_a, norm_a), (out_b, norm_b)
     return forward(img_a, flo_a, *args), forward(img_b, flo_b, *args)
 
@@ -761,11 +838,11 @@ def fwarp_splat(img: torch.Tensor, flo: torch.Tensor,
     shared-memory box and those that added straight to global memory.
     Returns (warped [B,C,H,W], weight norm [B,1,H,W]), differentiable in
     img and flo (on the card by :func:`fwarp_splat_bwd`).
-    rows=(r0, Ho), serving only: img and flo are rows [r0, r0 + H) of a
-    frame of Ho rows (a card's rows of a frame split by rows), and the
-    outputs are that frame's [B,C,Ho,W] and [B,1,Ho,W] canvases with only
-    these rows' splats; the sum of every card's canvases is the splat of
-    the whole frame."""
+    rows=(r0, Ho): img and flo are rows [r0, r0 + H) of a frame of Ho
+    rows (a card's rows of a frame split by rows), and the outputs are
+    that frame's [B,C,Ho,W] and [B,1,Ho,W] canvases with only these rows'
+    splats; the sum of every card's canvases is the splat of the whole
+    frame. Their gradient takes the whole canvases' cotangents."""
     if rows is not None:
         return _splat_canvas(img, flo, rows, route_stats)
     if img.device.type == "cpu" and flo.device.type == "cpu":
@@ -775,20 +852,30 @@ def fwarp_splat(img: torch.Tensor, flo: torch.Tensor,
     return _fwarp_call(img, flo, _splat_fwd, route_stats)
 
 
-def _splat_canvas(img, flo, rows, route_stats=None):
-    """:func:`fwarp_splat` with rows=(r0, Ho)."""
+def _check_canvas(img, rows) -> None:
     r0, ho = rows
     if not 0 <= r0 <= ho - img.shape[2]:
         raise ValueError(f"fwarp_splat: rows [{r0}, {r0 + img.shape[2]}) "
                          f"are not rows of a frame of {ho}")
-    _serving_rows("fwarp_splat", img, flo)
+
+
+def _canvas_fwd(img, flo, rows, stats=None):
+    out, norm = _fwarp_outputs(img, torch.zeros, rows[1])
+    _launch_splat(img, flo, out, norm, None, stats, rows[0])
+    return out, norm
+
+
+def _splat_canvas(img, flo, rows, route_stats=None):
+    """:func:`fwarp_splat` with rows=(r0, Ho)."""
+    _check_canvas(img, rows)
     if img.device.type == "cpu" and flo.device.type == "cpu":
         return _warp.fwarp_splat_plain(img, flo, rows)
     _check_fwarp("fwarp_splat", img, flo)
     _check_stats("fwarp_splat", route_stats, img)
-    out, norm = _fwarp_outputs(img, torch.zeros, rows[1])
-    _launch_splat(img, flo, out, norm, None, route_stats, rows[0])
-    return out, norm
+    if _needs_grad(img, flo):
+        return _FwarpRows.apply(img, flo, ("canvas",) + tuple(rows),
+                                _canvas_fwd, rows, route_stats)
+    return _canvas_fwd(img, flo, rows, route_stats)
 
 
 fwarp_splat.launches = 0
@@ -815,28 +902,39 @@ def fwarp_shift(img: torch.Tensor, flo: torch.Tensor, d: int,
     Returns (warped [B,C,H,W], weight norm [B,1,H,W]); on the card its
     gradient is the splat's (:func:`fwarp_splat_bwd`), the window's
     equal where max|flo| <= d - 1.
-    rows=(row_off, Ho), serving only: only the output rows [row_off,
-    row_off + Ho) of img's grid are computed ([B,C,Ho,W], [B,1,Ho,W]),
-    bit for bit those rows of the call without rows. A card that holds
-    rows of a frame split by rows passes its rows with a halo of d + 1
-    rows above and d below (as far as the frame reaches), and row_off
-    the halo above it has."""
+    rows=(row_off, Ho): only the output rows [row_off, row_off + Ho) of
+    img's grid are computed ([B,C,Ho,W], [B,1,Ho,W]), bit for bit those
+    rows of the call without rows. A card that holds rows of a frame
+    split by rows passes its rows with a halo of d + 1 rows above and d
+    below (as far as the frame reaches), and row_off the halo above it
+    has. On the card the gradient is then the splat's of img's rows for
+    the cotangent of these rows (zeros elsewhere)."""
     _check_window("fwarp_shift", d)
     if rows is not None:
-        row_off, ho = rows
-        if not (0 <= row_off and row_off + ho <= img.shape[2]):
-            raise ValueError(f"fwarp_shift: output rows [{row_off}, "
-                             f"{row_off + ho}) outside {img.shape[2]}")
-        _serving_rows("fwarp_shift", img, flo)
+        _check_crop("fwarp_shift", img, rows)
     if img.device.type == "cpu" and flo.device.type == "cpu":
         return _warp.fwarp_shift_plain(img, flo, d, rows)
     _check_fwarp("fwarp_shift", img, flo)
     _check_stats("fwarp_shift", row_stats, img)
-    if rows is not None:
-        out, norm = _fwarp_outputs(img, torch.empty, rows[1])
-        _launch_shift(img, flo, d, out, norm, None, row_stats, rows[0])
-        return out, norm
-    return _fwarp_call(img, flo, _shift_fwd, d, row_stats)
+    if rows is None:
+        return _fwarp_call(img, flo, _shift_fwd, d, row_stats)
+    if _needs_grad(img, flo):
+        return _FwarpRows.apply(img, flo, ("crop",) + tuple(rows),
+                                _shift_rows_fwd, d, rows, row_stats)
+    return _shift_rows_fwd(img, flo, d, rows, row_stats)
+
+
+def _check_crop(name: str, img, rows) -> None:
+    row_off, ho = rows
+    if not (0 <= row_off and row_off + ho <= img.shape[2]):
+        raise ValueError(f"{name}: output rows [{row_off}, "
+                         f"{row_off + ho}) outside {img.shape[2]}")
+
+
+def _shift_rows_fwd(img, flo, d, rows, stats=None):
+    out, norm = _fwarp_outputs(img, torch.empty, rows[1])
+    _launch_shift(img, flo, d, out, norm, None, stats, rows[0])
+    return out, norm
 
 
 fwarp_shift.launches = 0
@@ -865,25 +963,31 @@ def fwarp_guarded(img: torch.Tensor, flo: torch.Tensor, d: int
     return _fwarp_call(img, flo, _guarded_fwd, d)
 
 
-def _check_splat_bwd(img, flo, grad_out, grad_norm) -> None:
+def _check_splat_bwd(img, flo, grad_out, grad_norm, rows=None) -> None:
     _check_fwarp("fwarp_splat_bwd", img, flo)
     _check("fwarp_splat_bwd", img, grad_out, grad_norm)
     b, c, h, w = img.shape
-    if grad_out.shape != img.shape or tuple(grad_norm.shape) != (b, 1, h, w):
+    r0, ho = (0, h) if rows is None else rows
+    if not 0 <= r0 <= ho - h:
+        raise ValueError(f"fwarp_splat_bwd: rows [{r0}, {r0 + h}) are not "
+                         f"rows of a frame of {ho}")
+    if (tuple(grad_out.shape) != (b, c, ho, w)
+            or tuple(grad_norm.shape) != (b, 1, ho, w)):
         raise ValueError(f"fwarp_splat_bwd: cotangents "
                          f"{tuple(grad_out.shape)}, {tuple(grad_norm.shape)} "
-                         f"for img {tuple(img.shape)}")
-    if h * w >= 2 ** 31:
+                         f"for img {tuple(img.shape)} in {ho} rows")
+    if ho * w >= 2 ** 31:
         raise ValueError("fwarp_splat_bwd: a plane of 2^31 elements or more")
 
 
-def _launch_splat_bwd(*halves):
+def _launch_splat_bwd(*halves, rows: Optional[Tuple[int, int]] = None):
     """One launch of the backward kernel on one or two halves (img, flo,
     grad_out, grad_norm) of equal shapes. Returns [(grad_img, grad_flo)]
     per half, views of one allocation each for the images' and the
-    flows' gradients."""
+    flows' gradients. rows=(r0, Ho): img and flo are rows [r0, r0 + H)
+    of a frame of Ho rows, the cotangents that frame's canvases."""
     for half in halves:
-        _check_splat_bwd(*half)
+        _check_splat_bwd(*half, rows=rows)
     (img_a, flo_a, gout_a, gnorm_a), (img_b, flo_b, gout_b, gnorm_b) = (
         halves[0], halves[-1])
     if img_a.shape != img_b.shape or img_a.device != img_b.device:
@@ -891,6 +995,7 @@ def _launch_splat_bwd(*halves):
                          "shape or device")
     n = len(halves)
     b, c, h, w = img_a.shape
+    r0, ho = (0, h) if rows is None else rows
     grad_img = torch.empty((n * b, c, h, w), dtype=torch.float32,
                            device=img_a.device)
     grad_flo = torch.empty((n * b, 2, h, w), dtype=torch.float32,
@@ -899,7 +1004,8 @@ def _launch_splat_bwd(*halves):
         img_a.data_ptr(), img_b.data_ptr(), flo_a.data_ptr(),
         flo_b.data_ptr(), gout_a.data_ptr(), gout_b.data_ptr(),
         gnorm_a.data_ptr(), gnorm_b.data_ptr(), grad_img.data_ptr(),
-        grad_flo.data_ptr(), n, b, c, h, w, _raw_stream(img_a.device))
+        grad_flo.data_ptr(), n, b, c, h, w, ho, r0,
+        _raw_stream(img_a.device))
     _raise_on("fwarp_splat_bwd", rc)
     fwarp_splat_bwd.launches += 1
     return [(grad_img[k * b:(k + 1) * b], grad_flo[k * b:(k + 1) * b])
@@ -907,33 +1013,45 @@ def _launch_splat_bwd(*halves):
 
 
 def fwarp_splat_bwd(img: torch.Tensor, flo: torch.Tensor,
-                    grad_out: torch.Tensor, grad_norm: torch.Tensor
+                    grad_out: torch.Tensor, grad_norm: torch.Tensor,
+                    rows: Optional[Tuple[int, int]] = None
                     ) -> Tuple[torch.Tensor, torch.Tensor]:
     """The vjp of the forward warp: (grad_img [B,C,H,W], grad_flo
     [B,2,H,W]) for the cotangents grad_out [B,C,H,W] and grad_norm
     [B,1,H,W]. CPU tensors take
     :func:`demfi_torch.ops.warp.fwarp_splat_plain_vjp`; CUDA tensors
     launch the backward kernel (no atomics: the same bits every run; a
-    source pixel the forward kernel drops gets zero gradients)."""
+    source pixel the forward kernel drops gets zero gradients).
+    rows=(r0, Ho), as for :func:`fwarp_splat`: the cotangents are the
+    canvases [B,C,Ho,W] and [B,1,Ho,W] of a frame whose rows [r0, r0 +
+    H) img and flo are."""
     if all(t.device.type == "cpu" for t in (img, flo, grad_out, grad_norm)):
-        return _warp.fwarp_splat_plain_vjp(img, flo, grad_out, grad_norm)
-    return _launch_splat_bwd((img, flo, grad_out, grad_norm))[0]
+        if rows is not None:
+            _check_canvas(img, rows)
+        return _warp.fwarp_splat_plain_vjp(img, flo, grad_out, grad_norm,
+                                           rows)
+    return _launch_splat_bwd((img, flo, grad_out, grad_norm),
+                             rows=rows)[0]
 
 
 fwarp_splat_bwd.launches = 0
 
 
 def fwarp_splat_bwd_pair(img_a, flo_a, gout_a, gnorm_a,
-                         img_b, flo_b, gout_b, gnorm_b):
+                         img_b, flo_b, gout_b, gnorm_b,
+                         rows: Optional[Tuple[int, int]] = None):
     """:func:`fwarp_splat_bwd` of two halves of equal shapes in one launch
     of its kernel (counted in ``fwarp_splat_bwd.launches``). Returns
     ((grad_img_a, grad_flo_a), (grad_img_b, grad_flo_b)); CPU tensors take
-    the plain vjp of each half."""
+    the plain vjp of each half. rows as for :func:`fwarp_splat_bwd`."""
     tensors = (img_a, flo_a, gout_a, gnorm_a, img_b, flo_b, gout_b, gnorm_b)
     if all(t.device.type == "cpu" for t in tensors):
-        return (fwarp_splat_bwd(img_a, flo_a, gout_a, gnorm_a),
-                fwarp_splat_bwd(img_b, flo_b, gout_b, gnorm_b))
-    return tuple(_launch_splat_bwd(tensors[:4], tensors[4:]))
+        return (fwarp_splat_bwd(img_a, flo_a, gout_a, gnorm_a,
+                                rows=rows),
+                fwarp_splat_bwd(img_b, flo_b, gout_b, gnorm_b,
+                                rows=rows))
+    return tuple(_launch_splat_bwd(tensors[:4], tensors[4:],
+                                   rows=rows))
 
 
 WRAPPERS = (bilinear_gather, fwarp_splat, fwarp_shift, bilinear_gather_bwd,

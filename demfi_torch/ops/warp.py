@@ -49,6 +49,16 @@ host. FGAC's point-wise sample (rr = 0) samples the whole ref frame at
 the shard's coordinates; its window form (rr > 0) is not row-local (the
 tiled centroid canvas and shifted unfold), so it runs on the whole
 frame's inputs and keeps the shard's rows.
+
+A split frame trains too: every collective has its backward
+(``demfi_torch.parallel.halo``), so a gathered source's gradient, the
+whole frame's, is summed over the group and each rank keeps its rows,
+and a splat's canvases take the whole frame's cotangents (the backward
+of their sum), on which the backward kernels run at the same row
+offsets (``bilinear_gather_bwd(row0=)``, ``fwarp_splat_bwd(rows=)``).
+The stencil's gradient is the splat's, as unsplit: the splat's backward
+of its rows and halo for its rows' cotangent, the halo rows' gradient
+sent home by the exchange's backward.
 """
 from __future__ import annotations
 
@@ -178,33 +188,38 @@ def fwarp_splat_plain(img: torch.Tensor, flo: torch.Tensor,
 
 
 def bilinear_gather_plain_vjp(img: torch.Tensor, coords: torch.Tensor,
-                              relative: bool, grad_out: torch.Tensor
+                              relative: bool, grad_out: torch.Tensor,
+                              row0: int = 0
                               ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Plain version of the ``bilinear_gather_bwd`` kernel: the vjp of
     :func:`bilinear_gather_plain`'s first output for the cotangent
     grad_out [B,C,Hq,Wq], by autograd. Returns (grad_img [B,C,H,W] in the
     image's dtype, summed in float32 and rounded once, grad_coords
-    [B,2,Hq,Wq] float32)."""
+    [B,2,Hq,Wq] float32). row0 as for :func:`bilinear_gather_plain`: the
+    query rows of a shard, the image's gradient the whole image's."""
     with torch.enable_grad():
         img = img.detach().requires_grad_(True)
         coords = coords.detach().requires_grad_(True)
-        out, _ = bilinear_gather_plain(img, coords, relative)
+        out, _ = bilinear_gather_plain(img, coords, relative, row0)
         grad_img, grad_coords = torch.autograd.grad(out, (img, coords),
                                                     grad_out)
     return grad_img, grad_coords
 
 
 def fwarp_splat_plain_vjp(img: torch.Tensor, flo: torch.Tensor,
-                          grad_out: torch.Tensor, grad_norm: torch.Tensor
+                          grad_out: torch.Tensor, grad_norm: torch.Tensor,
+                          rows: Optional[Tuple[int, int]] = None
                           ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Plain version of the ``fwarp_splat_bwd`` kernel: the vjp of
     :func:`fwarp_splat_plain` for the cotangents grad_out [B,C,H,W] and
     grad_norm [B,1,H,W], by autograd. Returns (grad_img [B,C,H,W],
-    grad_flo [B,2,H,W])."""
+    grad_flo [B,2,H,W]). rows=(r0, Ho) as for :func:`fwarp_splat_plain`:
+    img and flo are a shard's rows, the cotangents [B,C,Ho,W] and
+    [B,1,Ho,W] canvases of the whole frame."""
     with torch.enable_grad():
         img = img.detach().requires_grad_(True)
         flo = flo.detach().requires_grad_(True)
-        out, norm = fwarp_splat_plain(img, flo)
+        out, norm = fwarp_splat_plain(img, flo, rows)
         grad_img, grad_flo = torch.autograd.grad(
             (out, norm), (img, flo), (grad_out, grad_norm))
     return grad_img, grad_flo
@@ -317,41 +332,61 @@ def _fwarp_rows(halves, shift_d: int, shard):
     """:func:`fwarp` of each (img, flo) half of a shard's rows. With
     shift_d > 0 a half takes the stencil where no |flo| of the whole
     frame exceeds shift_d - 1 (one flag a half, reduced over the group
-    and read on the host), else the splat."""
+    and read on the host), else the splat. The halves that take one
+    kernel go together: one sum of their canvases, or one stencil
+    Function, and one backward launch."""
     wide = [True] * len(halves)
     if shift_d > 0:
-        flags = torch.stack([(f.abs() > float(shift_d - 1)).any()
-                             for _, f in halves]).float()
-        wide = [v > 0 for v in allreduce_max(flags, shard).tolist()]
-    return [_splat_rows(i, f, shard) if w
-            else _shift_rows(i, f, shift_d, shard)
-            for (i, f), w in zip(halves, wide)]
+        with torch.no_grad():
+            flags = torch.stack([(f.abs() > float(shift_d - 1)).any()
+                                 for _, f in halves]).float()
+            wide = [v > 0 for v in allreduce_max(flags, shard).tolist()]
+    if len(set(wide)) == 1:
+        return (_splat_rows(halves, shard) if wide[0]
+                else _shift_rows(halves, shift_d, shard))
+    return [_splat_rows([half], shard)[0] if w
+            else _shift_rows([half], shift_d, shard)[0]
+            for half, w in zip(halves, wide)]
 
 
-def _splat_rows(img, flo, shard):
-    """The splat of a shard's rows into a canvas of the whole frame, the
-    canvases of the group summed, this shard's rows kept."""
-    b, c, rows, w = img.shape
-    out, norm = kernels.fwarp_splat(img, flo, rows=(shard.r0, shard.h))
-    both = allreduce_sum(torch.cat([out.reshape(-1), norm.reshape(-1)]),
-                         shard)
-    n = out.numel()
-    rows_of = slice(shard.r0, shard.r1)
-    return (both[:n].view(b, c, shard.h, w)[:, :, rows_of].contiguous(),
-            both[n:].view(b, 1, shard.h, w)[:, :, rows_of].contiguous())
+def _splat_rows(halves, shard):
+    """The splat of each half's rows of a shard into canvases of the
+    whole frame, the group's canvases summed (one all-reduce for every
+    half), this shard's rows kept."""
+    rows = (shard.r0, shard.h)
+    if len(halves) == 2:
+        canvases = kernels.fwarp_pair(*halves[0], *halves[1], rows=rows)
+    else:
+        canvases = [kernels.fwarp_splat(*halves[0], rows=rows)]
+    flat = [t for pair in canvases for t in pair]
+    both = allreduce_sum(torch.cat([t.reshape(-1) for t in flat]), shard)
+    out, at = [], 0
+    for t in flat:
+        whole = both[at:at + t.numel()].view(t.shape)
+        out.append(whole[:, :, shard.r0:shard.r1].contiguous())
+        at += t.numel()
+    return [tuple(out[k:k + 2]) for k in range(0, len(out), 2)]
 
 
-def _shift_rows(img, flo, d: int, shard):
-    """The stencil's sum for a shard's rows: its rows of img and flo with
-    d + 1 rows above and d below, as far as the frame reaches."""
-    c, rows = img.shape[1], img.shape[2]
+def _shift_rows(halves, d: int, shard):
+    """The stencil's sum for a shard's rows of each half: the halves' rows
+    of img and flo with d + 1 rows above and d below, as far as the frame
+    reaches (one ``exchange_rows`` for every half), summed for its rows
+    (``kernels.fwarp_pair`` or ``kernels.fwarp_shift`` with rows). The
+    gradient of the halo rows goes home through the exchange's
+    backward."""
     up, down = d + 1, d
-    both = exchange_rows(torch.cat([img, flo], dim=1), up, down, shard)
+    rows = halves[0][0].shape[2]
     top = up if shard.index > 0 else 0
     bottom = down if shard.index < shard.size - 1 else 0
-    both = both[:, :, up - top:up + rows + bottom]
-    return kernels.fwarp_shift(both[:, :c].contiguous(),
-                               both[:, c:].contiguous(), d, rows=(top, rows))
+    flat = [t for half in halves for t in half]
+    sizes = [t.shape[1] for t in flat]
+    both = exchange_rows(torch.cat(flat, dim=1), up, down, shard)
+    parts = [t.contiguous() for t in
+             both[:, :, up - top:up + rows + bottom].split(sizes, dim=1)]
+    if len(halves) == 2:
+        return list(kernels.fwarp_pair(*parts, d=d, rows=(top, rows)))
+    return [kernels.fwarp_shift(*parts, d, rows=(top, rows))]
 
 
 def fwarp(img: torch.Tensor, flo: torch.Tensor, shift_d: int = 0, shard=None
@@ -367,7 +402,7 @@ def fwarp(img: torch.Tensor, flo: torch.Tensor, shift_d: int = 0, shard=None
     img = img.contiguous()
     flo = flo.contiguous()
     if shard is not None:
-        return _fwarp_rows([(img, flo)], shift_d, shard)[0]
+        return tuple(_fwarp_rows([(img, flo)], shift_d, shard)[0])
     if shift_d <= 0:
         return kernels.fwarp_splat(img, flo)
     return kernels.fwarp_guarded(img, flo, shift_d)
@@ -385,9 +420,9 @@ def fwarp_pair(img_a: torch.Tensor, flo_a: torch.Tensor,
                          f"{tuple(img_b.shape)}, {tuple(flo_a.shape)}, "
                          f"{tuple(flo_b.shape)}")
     if shard is not None:
-        return tuple(_fwarp_rows([(img_a.contiguous(), flo_a.contiguous()),
-                                  (img_b.contiguous(), flo_b.contiguous())],
-                                 shift_d, shard))
+        return tuple(tuple(half) for half in _fwarp_rows(
+            [(img_a.contiguous(), flo_a.contiguous()),
+             (img_b.contiguous(), flo_b.contiguous())], shift_d, shard))
     return kernels.fwarp_pair(img_a.contiguous(), flo_a.contiguous(),
                               img_b.contiguous(), flo_b.contiguous(),
                               shift_d)

@@ -18,9 +18,32 @@ hold untiled is computed whole, exactly.
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, Optional
+from typing import Any, Optional, Tuple
 
 import torch.distributed as dist
+
+# a rank's rows and first row are multiples of this: the network's total
+# stride (space-to-depth and RefineUNet's three stride-2 encoders,
+# DeMFINet.row_stride)
+ROW_STRIDE = 8
+
+
+def row_cuts(h: int, size: int, stride: int = ROW_STRIDE
+             ) -> Optional[Tuple[int, ...]]:
+    """The first row of each of ``size`` ranks' blocks of a frame of h
+    rows, and h: the frame cut into blocks of ``stride`` rows, each rank
+    ``floor`` or ``ceil`` of blocks / size of them, the larger shares to
+    the first ranks (736 rows at size 8: four ranks of 96 rows, four of
+    88). None where the frame is not split: size 1, h not a multiple of
+    size (the JAX engine shards H only where it divides) or of stride,
+    or fewer blocks than ranks."""
+    if size <= 1 or h % size or h % stride or h // stride < size:
+        return None
+    base, extra = divmod(h // stride, size)
+    cuts = [0]
+    for i in range(size):
+        cuts.append(cuts[-1] + (base + (i < extra)) * stride)
+    return tuple(cuts)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -28,7 +51,8 @@ class RowShard:
     """The rows [r0, r1) of a frame of h rows that rank ``index`` of a
     spatial group of ``size`` ranks (``group``) holds. ``above`` and
     ``below`` are the global ranks of its neighbours, None at the frame's
-    top and bottom edges."""
+    top and bottom edges. ``cuts``: every rank's first row and h
+    (:func:`row_cuts`); empty for h / size rows a rank."""
     h: int
     r0: int
     r1: int
@@ -37,10 +61,18 @@ class RowShard:
     group: Any = None
     above: Optional[int] = None
     below: Optional[int] = None
+    cuts: Tuple[int, ...] = ()
 
     @property
     def rows(self) -> int:
         return self.r1 - self.r0
+
+    def span(self, i: int) -> Tuple[int, int]:
+        """Rows [a, b) of rank i of the group."""
+        if self.cuts:
+            return self.cuts[i], self.cuts[i + 1]
+        rows = self.h // self.size
+        return i * rows, (i + 1) * rows
 
 
 @dataclasses.dataclass(frozen=True)
@@ -68,20 +100,22 @@ class Grid:
         outputs."""
         return self.spatial_index == 0
 
-    def shard(self, h: int) -> Optional[RowShard]:
-        """This rank's rows of a frame of h rows, or None where the frame
-        is not split: a grid without a spatial axis, or h not a multiple
-        of it (the JAX engine shards H only where it divides)."""
+    def shard(self, h: int, stride: int = ROW_STRIDE) -> Optional[RowShard]:
+        """This rank's rows of a frame of h rows (:func:`row_cuts`), or
+        None where the frame is not split: a grid without a spatial axis,
+        h not a multiple of it or of ``stride``, or fewer blocks of
+        ``stride`` rows than ranks."""
         s = self.spatial
-        if s <= 1 or h % s:
+        cuts = row_cuts(h, s, stride)
+        if cuts is None:
             return None
         i = self.spatial_index
-        rows = h // s
         base = self.rank - i
-        return RowShard(h=h, r0=i * rows, r1=(i + 1) * rows, index=i, size=s,
+        return RowShard(h=h, r0=cuts[i], r1=cuts[i + 1], index=i, size=s,
                         group=self.group,
                         above=base + i - 1 if i > 0 else None,
-                        below=base + i + 1 if i < s - 1 else None)
+                        below=base + i + 1 if i < s - 1 else None,
+                        cuts=cuts)
 
 
 def make_grid(mesh_data: int = 0, mesh_spatial: int = 1) -> Grid:

@@ -179,11 +179,13 @@ def test_cli_refuses(tree, capsys):
         checkpoint_dir=str(root / "refuse" / "ckpt")), "latest"), sd)
     # training runs (tests/test_torch_train.py), on one process or more
     # (tests/test_torch_parallel.py); the JAX package's mesh flags are
-    # accepted, and --mesh_spatial 2 needs two processes
-    # (tests/test_torch_spatial.py runs them)
-    cfg = parse_args(["--phase", "test", "--device", "cpu",
-                      "--mesh_spatial", "2", "--mesh_data", "1"])
-    assert (cfg.mesh_spatial, cfg.mesh_data) == (2, 1)
+    # accepted in every phase, and --mesh_spatial 2 needs two processes
+    # (tests/test_torch_spatial.py and, for training,
+    # tests/test_torch_spatial_train.py run them)
+    for phase in ("test", "train"):
+        cfg = parse_args(["--phase", phase, "--device", "cpu",
+                          "--mesh_spatial", "2", "--mesh_data", "1"])
+        assert (cfg.mesh_spatial, cfg.mesh_data) == (2, 1)
     with pytest.raises(ValueError, match="--mesh_spatial 2 splits rows "
                                          "across 2 processes of one data "
                                          "group, but the run has 1 process"):

@@ -1150,3 +1150,114 @@ def test_row_offset_kernels(cuda_device, split, image_dtype):
     for acc, whole in zip(summed, whole_s):
         assert float((acc - whole).abs().max()) <= \
             1e-5 * float(whole.abs().max())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("split", [2, 4])
+@pytest.mark.parametrize("image_dtype", [torch.float32, torch.bfloat16])
+def test_row_offset_backward_kernels(cuda_device, split, image_dtype):
+    """The backward kernels on every shard of a frame split by rows
+    (training's --mesh_spatial): the gather pair's backward at its row
+    offset against its plain vjp (1e-5 of the largest value, a bfloat16
+    image's gradient 1e-2), its coordinates' gradient bitwise the unsplit
+    kernel's rows and its image gradients, summed over the shards, the
+    unsplit kernel's (1e-5); the splat's backward of a shard's source rows
+    on the whole frame's cotangents (CFR's two halves in one launch)
+    bitwise the unsplit kernel's rows and within 1e-5 of its plain vjp."""
+    rng = np.random.RandomState(10 + split)
+    b, c, h, w = 2, 5, 48, 72
+    rows = h // split
+
+    def cuda(*shape, scale=1.0):
+        return torch.from_numpy((rng.randn(*shape) * scale).astype(
+            np.float32)).to(cuda_device)
+    img_a, img_b = (cuda(b, c, h, w).to(image_dtype) for _ in range(2))
+    fa, fb = cuda(b, 2, h, w, scale=6), cuda(b, 2, h, w, scale=6)
+    ga, gb = cuda(b, c, h, w), cuda(b, c, h, w)
+    srcs = [cuda(b, 2, h, w) for _ in range(2)]
+    flos = [cuda(b, 2, h, w, scale=3) for _ in range(2)]
+    gouts = [cuda(b, 2, h, w) for _ in range(2)]
+    gnorms = [cuda(b, 1, h, w) for _ in range(2)]
+    (wi_a, wi_b), (wc_a, wc_b) = kernels.bilinear_gather_pair_bwd(
+        img_a, img_b, fa, fb, ga, gb, True)
+    whole_s = kernels.fwarp_splat_bwd_pair(srcs[0], flos[0], gouts[0],
+                                           gnorms[0], srcs[1], flos[1],
+                                           gouts[1], gnorms[1])
+    summed = [torch.zeros(b, c, h, w, device=cuda_device) for _ in range(2)]
+    img_tol = 1e-2 if image_dtype == torch.bfloat16 else 1e-5
+    for i in range(split):
+        r0, r1 = i * rows, (i + 1) * rows
+
+        def sl(t):
+            return t[:, :, r0:r1].contiguous()
+        n = kernels.bilinear_gather_bwd.launches
+        (gi_a, gi_b), (gc_a, gc_b) = kernels.bilinear_gather_pair_bwd(
+            img_a, img_b, sl(fa), sl(fb), sl(ga), sl(gb), True, row0=r0)
+        assert kernels.bilinear_gather_bwd.launches == n + 1
+        for gi, gc, img, f, g, wc, acc in zip(
+                (gi_a, gi_b), (gc_a, gc_b), (img_a, img_b), (fa, fb),
+                (ga, gb), (wc_a, wc_b), summed):
+            assert gi.shape == img.shape and gi.dtype == image_dtype
+            pi, pc = warp.bilinear_gather_plain_vjp(img, sl(f), True, sl(g),
+                                                    r0)
+            assert float((gi.float() - pi.float()).abs().max()) <= \
+                img_tol * float(pi.float().abs().max())
+            assert float((gc - pc).abs().max()) <= \
+                1e-5 * float(pc.abs().max())
+            assert torch.equal(gc, wc[:, :, r0:r1])
+            acc += gi.float()
+        n = kernels.fwarp_splat_bwd.launches
+        got = kernels.fwarp_splat_bwd_pair(
+            sl(srcs[0]), sl(flos[0]), gouts[0], gnorms[0], sl(srcs[1]),
+            sl(flos[1]), gouts[1], gnorms[1], rows=(r0, h))
+        assert kernels.fwarp_splat_bwd.launches == n + 1
+        for k, ((gi, gf), (wi, wf)) in enumerate(zip(got, whole_s)):
+            assert torch.equal(gi, wi[:, :, r0:r1])
+            assert torch.equal(gf, wf[:, :, r0:r1])
+            pi, pf = warp.fwarp_splat_plain_vjp(
+                sl(srcs[k]), sl(flos[k]), gouts[k], gnorms[k], (r0, h))
+            for x, p in ((gi, pi), (gf, pf)):
+                assert float((x - p).abs().max()) <= \
+                    1e-5 * float(p.abs().max())
+    for acc, whole in zip(summed, (wi_a, wi_b)):
+        assert float((acc - whole.float()).abs().max()) <= \
+            img_tol * float(whole.float().abs().max())
+
+
+@pytest.mark.cuda
+def test_row_offset_stencil_gradient(cuda_device):
+    """The stencil on a shard's rows and halo under autograd on the card,
+    alone (``fwarp_shift(rows=)``) and as CFR's pair (``fwarp_pair(d,
+    rows=)``, the split model's path: one backward launch for both
+    halves): its gradient is the splat's of the source rows for the
+    output rows' cotangent, equal to autograd through the plain stencil
+    on the CPU inside its window (1e-5 of the largest value)."""
+    rng = np.random.RandomState(3)
+    b, c, h, w, d = 2, 2, 40, 36, 8
+    srcs = [rng.randn(b, c, h, w).astype(np.float32) for _ in range(2)]
+    flos = [rng.uniform(-d + 1.5, d - 1.5, (b, 2, h, w)).astype(np.float32)
+            for _ in range(2)]
+    cots = [[rng.randn(b, k, 16, w).astype(np.float32) for k in (c, 1)]
+            for _ in range(2)]
+
+    def grads_of(dev, pair):
+        leaves = [torch.from_numpy(a).to(dev).requires_grad_()
+                  for half in zip(srcs, flos) for a in half]
+        if pair:
+            halves = kernels.fwarp_pair(*leaves, d=d, rows=(9, 16))
+        else:
+            halves = [kernels.fwarp_shift(*leaves[:2], d, rows=(9, 16))]
+        n = kernels.fwarp_splat_bwd.launches
+        sum((o * torch.from_numpy(g).to(dev)).sum()
+            for outs, cot in zip(halves, cots) for o, g in zip(outs, cot)
+            ).backward()
+        if dev.type == "cuda":
+            assert kernels.fwarp_splat_bwd.launches == n + 1
+        return [t.grad.cpu() for t in leaves if t.grad is not None]
+    for pair in (False, True):
+        got = grads_of(cuda_device, pair)
+        want = grads_of(torch.device("cpu"), pair)
+        assert len(got) == len(want) == (4 if pair else 2)
+        for g, wt in zip(got, want):
+            assert float((g - wt).abs().max()) <= \
+                1e-5 * float(wt.abs().max())

@@ -498,16 +498,17 @@ def test_autograd_functions_route_to_the_backward_kernels(monkeypatch):
     plain versions' gradients, saves what its forward read, launches one
     backward per forward, and the in-image weight plane carries no
     gradient. Under no_grad no Function is built."""
-    def gather(halves, relative, want_ones):
-        outs = [warp.bilinear_gather_plain(i.detach(), c.detach(), relative)
+    def gather(halves, relative, want_ones, row0=None):
+        outs = [warp.bilinear_gather_plain(i.detach(), c.detach(), relative,
+                                           row0 or 0)
                 for i, c in halves]
         kernels.bilinear_gather.launches += 1
         return (torch.cat([o for o, _ in outs]),
                 torch.cat([o for _, o in outs]) if relative and want_ones
                 else None)
 
-    def gather_bwd(halves, relative, route_stats=None):
-        r = [warp.bilinear_gather_plain_vjp(i, c, relative, g)
+    def gather_bwd(halves, relative, route_stats=None, row0=None):
+        r = [warp.bilinear_gather_plain_vjp(i, c, relative, g, row0 or 0)
              for i, c, g in halves]
         kernels.bilinear_gather_bwd.launches += 1
         return torch.cat([a for a, _ in r]), torch.cat([b for _, b in r])
@@ -517,9 +518,9 @@ def test_autograd_functions_route_to_the_backward_kernels(monkeypatch):
         return tuple(t.detach() for t in warp.fwarp_splat_plain(
             img.detach(), flo.detach()))
 
-    def splat_bwd(*halves):
+    def splat_bwd(*halves, rows=None):
         kernels.fwarp_splat_bwd.launches += 1
-        return [warp.fwarp_splat_plain_vjp(*half) for half in halves]
+        return [warp.fwarp_splat_plain_vjp(*half, rows) for half in halves]
 
     monkeypatch.setattr(kernels, "_launch_gather", gather)
     monkeypatch.setattr(kernels, "_launch_gather_bwd", gather_bwd)
@@ -617,10 +618,10 @@ def test_fwarp_pair_function_routes_to_one_backward_launch(monkeypatch):
         return tuple(t.detach() for t in warp.fwarp_splat_plain(
             img.detach(), flo.detach()))
 
-    def splat_bwd(*halves):
+    def splat_bwd(*halves, rows=None):
         assert len(halves) == 2
         kernels.fwarp_splat_bwd.launches += 1
-        return [warp.fwarp_splat_plain_vjp(*half) for half in halves]
+        return [warp.fwarp_splat_plain_vjp(*half, rows) for half in halves]
 
     monkeypatch.setattr(kernels, "_launch_splat_bwd", splat_bwd)
     rng = np.random.RandomState(12)

@@ -32,7 +32,7 @@ from demfi_torch.config import config_rb
 from demfi_torch.data import AdobeTrainDataset, TrainLoader
 from demfi_torch.infer import InferenceEngine
 from demfi_torch.infer import driver
-from demfi_torch.main import cli
+from demfi_torch.main import cli, parse_args
 from demfi_torch.models import make_model
 from demfi_torch.train import create_train_state, make_train_step
 
@@ -143,17 +143,18 @@ def test_loader_slices_make_up_the_stream_and_equal_jax(tree, batch_size):
 
 # ---------------------------------------------------------- (e) refusals
 def test_flag_refusals(tree, capsys):
-    """--phase train --mesh_spatial 2 (training's spatial axis is a later
-    slice) is refused when the flags are parsed, and --mesh_data 2 in
-    one process (the data axis spans every process) when the run starts;
-    a global batch the processes cannot share, or a last partial batch,
-    when the loader is built; incomplete coordinator flags when the
-    process group is joined."""
+    """--phase train --mesh_spatial 2 (training's spatial axis,
+    tests/test_torch_spatial_train.py) is parsed, and refused in one
+    process when the run starts, as --mesh_data 2 is (the data axis spans
+    every process); a global batch the processes cannot share, or a last
+    partial batch, when the loader is built; incomplete coordinator flags
+    when the process group is joined."""
     base = ["--phase", "train", *SMALL_ARGS, *dir_args(dirs(tree, "refuse"))]
-    with pytest.raises(SystemExit):
+    assert parse_args(base + ["--mesh_spatial", "2"]).mesh_spatial == 2
+    with pytest.raises(ValueError, match="--mesh_spatial 2 splits rows "
+                                         "across 2 processes of one data "
+                                         "group, but the run has 1 process"):
         cli(base + ["--mesh_spatial", "2"])
-    assert "training's spatial axis is a later slice" in \
-        capsys.readouterr().err
     with pytest.raises(ValueError, match="--mesh_data 2 does not match the "
                                          "process group: 1 processes"):
         cli(base + ["--mesh_data", "2"])

@@ -21,9 +21,15 @@ carried across by the port's converter):
     metrics within 1e-3 dB and the PNGs within one uint8 step (JAX's own
     bar, tests/test_driver_cli.py), and ``test_custom``;
   - the tiled ``forward_window``, each tile's rows split;
-  - the refusals: a --mesh_data that is not P / S, --phase train
-    --mesh_spatial 2, a split the network's stride cannot take, more
-    ranks than processes, and the halo exchange under autograd.
+  - unequal row blocks: a 48-row frame at patch_boundary 16 on four ranks
+    (16/16/8/8 rows) against the unsplit port (1e-5) and the JAX engine
+    on Mesh(devices[:4].reshape(1, 4)) (1e-3);
+  - the refusals that remain: a --mesh_data that is not P / S, more
+    ranks than processes (also for --phase train, which splits rows
+    since training's spatial axis: tests/test_torch_spatial_train.py), a
+    hand-made shard off the network's stride, a halo that needs a
+    neighbour's neighbour; and the halo exchange under autograd, which
+    now has its backward.
 """
 import json
 import os
@@ -48,7 +54,7 @@ from demfi_torch.checkpoint import (checkpoint_path, flax_params_to_state_dict,
                                     save_checkpoint)
 from demfi_torch.config import DeMFIConfig, config_rb
 from demfi_torch.infer import InferenceEngine, WindowResult
-from demfi_torch.main import cli
+from demfi_torch.main import cli, parse_args
 from demfi_torch.models import make_model
 from demfi_torch.models.demfi import RefineUNet, _minmax_norm
 from demfi_torch.ops import kernels
@@ -66,6 +72,7 @@ SPLIT_RTOL = 1e-5       # split against unsplit port, of the largest value
 JAX_ATOL = 1e-3         # the port against JAX on the CPU
 SPAWN_TIMEOUT = 300
 SHIFT_D = 8
+ODD_H = 48              # six blocks of 8 rows: 16/16/8/8 on four ranks
 
 
 @pytest.fixture(scope="module", autouse=True)
@@ -106,6 +113,7 @@ def _inputs():
         rows=np.arange(2 * 3 * H * 5, dtype=f32).reshape(2, 3, H, 5),
         norm=(rng.rand(2, 1, H, W) * 5).astype(f32),
         unet=rng.randn(1, 3 * 8 + 9, 8, 16).astype(f32),
+        odd=rng.uniform(-1, 1, (1, 4, ODD_H, W, 3)).astype(f32),
     )
 
 
@@ -151,6 +159,12 @@ with torch.no_grad():
             spec["ts"][0], np.float32), test_patch=(2, 1),
             patch_boundary=16)
         out.update({"tiled_" + k: v for k, v in vars(res).items()})
+    if spec["odd"]:
+        odd = engine.shard(inp["odd"].shape[2])
+        out["odd_rows"] = np.array([odd.r0, odd.r1])
+        res = engine.forward_windows(inp["odd"].numpy(), np.asarray(
+            spec["ts"], np.float32), patch_boundary=16)[0]
+        out.update({"odd_" + k: v for k, v in vars(res).items()})
     # the collectives and the warps at shard edges
     out["exchange"] = exchange_rows(inp["rows"][:, :, rows], 2, 3, shard)
     out["exchange_bf16"] = exchange_rows(
@@ -168,11 +182,9 @@ with torch.no_grad():
     with rows_of(unet, ushard):
         out["unet"] = unet(x[:, :, ushard.r0:ushard.r1])
 with torch.enable_grad():
-    try:
-        exchange_rows(inp["rows"][:, :, rows].requires_grad_(), 1, 1, shard)
-        out["grad_refused"] = ""
-    except RuntimeError as e:
-        out["grad_refused"] = str(e)
+    x = inp["rows"][:, :, rows].clone().requires_grad_()
+    exchange_rows(x, 1, 1, shard).sum().backward()
+    out["grad_ones"] = x.grad
 np.savez(work / f"rank{pid}.npz", **{k: np.asarray(v) for k, v in out.items()})
 destroy_distributed()
 for phase, argv in spec["cli"].items():
@@ -235,14 +247,15 @@ def setup(tmp_path_factory):
     return root, jmodel, params, sd, unet
 
 
-def _spawn(root: Path, size: int, tiled: bool, with_cli: bool):
+def _spawn(root: Path, size: int, tiled: bool, with_cli: bool,
+           odd: bool = False):
     work = root / f"work{size}"
     work.mkdir()
     for name in ("weights.pt", "unet.pt"):
         (work / name).write_bytes((root / name).read_bytes())
     np.savez(work / "inputs.npz", **_inputs())
     spec = dict(shift_d=SHIFT_D, small=SMALL, ts=TS.tolist(),
-                tiled=tiled, cli={}, test=_free_port(),
+                tiled=tiled, odd=odd, cli={}, test=_free_port(),
                 test_custom=_free_port())
     if with_cli:
         spec["cli"] = {
@@ -283,7 +296,7 @@ def two_ranks(setup):
 @pytest.fixture(scope="module")
 def four_ranks(setup):
     root = setup[0]
-    return _spawn(root, 4, tiled=False, with_cli=False)
+    return _spawn(root, 4, tiled=False, with_cli=False, odd=True)
 
 
 @pytest.fixture(scope="module")
@@ -298,7 +311,8 @@ def whole(setup):
     untiled = engine.forward_windows(frames, TS)[0]
     tiled = engine.forward_window(frames, TS[0], test_patch=(2, 1),
                                   patch_boundary=16)
-    return untiled, tiled
+    odd = engine.forward_windows(_inputs()["odd"], TS, patch_boundary=16)[0]
+    return untiled, tiled, odd
 
 
 def _close(got, want, rtol, name):
@@ -433,33 +447,66 @@ def test_cli_mesh_spatial_equals_unsplit(two_ranks, setup):
 
 
 def test_refusals(two_ranks, setup, capsys):
-    """A --mesh_data that is not P / S, --phase train --mesh_spatial 2, a
-    split whose rows the network's stride cannot take, more ranks than
-    processes, and the halo exchange under autograd."""
+    """What stays refused: a --mesh_data that is not P / S, more ranks
+    than processes (--phase test, and --phase train, whose flag is
+    accepted now that training splits rows), a hand-made shard whose rows
+    the network's stride cannot take (Grid.shard cuts none such), a halo
+    that needs a neighbour's neighbour. The halo exchange under autograd
+    is no longer refused: on every rank the gradient of its sum is one
+    per row plus one on each edge row a neighbour read."""
     root = setup[0]
     got, _, _ = two_ranks
-    for r in got:
-        assert "serves only" in str(r["grad_refused"])
+    for s, r in enumerate(got):
+        want = np.ones_like(r["grad_ones"])
+        want[:, :, -1] += s < len(got) - 1
+        want[:, :, 0] += s > 0
+        np.testing.assert_array_equal(r["grad_ones"], want)
     with pytest.raises(ValueError, match="--mesh_data 3 does not match"):
         cli(["--phase", "test", "--mesh_data", "3",
              *_cli_args(root, "refuse")])
-    with pytest.raises(SystemExit):
-        cli(["--phase", "train", "--mesh_spatial", "2", *SMALL_ARGS])
-    assert "training's spatial axis is a later slice" in \
-        capsys.readouterr().err
-    with pytest.raises(ValueError, match="--mesh_spatial 2 splits rows "
-                                         "across 2 processes"):
-        cli(["--phase", "test", "--mesh_spatial", "2",
-             *_cli_args(root, "refuse")])
+    assert parse_args(["--phase", "train", "--mesh_spatial", "2"]
+                      ).mesh_spatial == 2
+    for phase in ("test", "train"):
+        with pytest.raises(ValueError, match="--mesh_spatial 2 splits rows "
+                                             "across 2 processes"):
+            cli(["--phase", phase, "--mesh_spatial", "2",
+                 *_cli_args(root, "refuse")])
     model = make_model(config_rb(1, 1, device="cpu", **SMALL), device="cpu")
-    # padded to multiples of 8 and split in two: 36 rows a rank
+    # split in two by hand: 36 rows a rank
     with pytest.raises(ValueError, match="total stride 8"):
         with model.rows(RowShard(h=72, r0=0, r1=36, index=0, size=2)):
             pass
-    shard = RowShard(h=H, r0=0, r1=H // 2, index=0, size=2)
-    x = torch.zeros(1, 1, H // 2, 4, requires_grad=True)
-    with pytest.raises(RuntimeError, match="serves only"):
-        exchange_rows(x, 1, 1, shard)
+    cut = Grid(world=2, spatial=2).shard(72)    # nine blocks: 5 + 4
+    assert (cut.r0, cut.r1) == (0, 40)
+    shard = RowShard(h=H, r0=0, r1=1, index=0, size=H)
+    x = torch.zeros(1, 1, 1, 4, requires_grad=True)
+    with pytest.raises(ValueError, match="a neighbour's neighbour"):
+        exchange_rows(x, 2, 2, shard)
+
+
+def test_unequal_row_blocks(four_ranks, whole, setup):
+    """A 48-row frame at patch_boundary 16 on four ranks: six blocks of 8
+    rows, 16/16/8/8 rows a rank (each a multiple of the network's
+    stride, so no rank refuses it), every field within 1e-5 of the
+    largest value of the unsplit port's and within 1e-3 of the JAX
+    engine's on a 1x4 ('data', 'spatial') mesh."""
+    got, _, _ = four_ranks
+    assert [tuple(r["odd_rows"]) for r in got] == [(0, 16), (16, 32),
+                                                   (32, 40), (40, 48)]
+    for r in got:
+        for name in FIELDS:
+            _close(r["odd_" + name], getattr(whole[2], name), SPLIT_RTOL,
+                   name)
+    _, jmodel, params, _, _ = setup
+    mesh = Mesh(np.array(jax.devices()[:4]).reshape(1, 4),
+                ("data", "spatial"))
+    want = JaxEngine(jmodel, params, 1, mesh=mesh).forward_windows(
+        _inputs()["odd"], TS, patch_boundary=16)[0]
+    for name in FIELDS:
+        np.testing.assert_allclose(got[0]["odd_" + name],
+                                   np.asarray(getattr(want, name)),
+                                   atol=JAX_ATOL, rtol=JAX_ATOL,
+                                   err_msg=name)
 
 
 def test_unsplit_height_runs_whole(capsys):

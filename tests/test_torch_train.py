@@ -291,21 +291,21 @@ def test_gradient_bound_catches_a_warp_without_gradient(monkeypatch,
     gather, pair, splat = (kernels.bilinear_gather,
                            kernels.bilinear_gather_pair, kernels.fwarp_splat)
 
-    def cut_gather(i, c, relative, want_ones=True):
+    def cut_gather(i, c, relative, want_ones=True, row0=None):
         if every or (kind == "fgac_samples" and not relative):
             i, c = i.detach(), c.detach()
-        return gather(i, c, relative, want_ones)
+        return gather(i, c, relative, want_ones, row0=row0)
 
-    def cut_pair(a, b, ca, cb, relative, want_ones=False):
+    def cut_pair(a, b, ca, cb, relative, want_ones=False, row0=None):
         group = "booster_pairs" if a.shape[1] == 3 else "feature_pairs"
         if every or kind == group:
             a, b, ca, cb = a.detach(), b.detach(), ca.detach(), cb.detach()
-        return pair(a, b, ca, cb, relative, want_ones)
+        return pair(a, b, ca, cb, relative, want_ones, row0=row0)
 
-    def cut_splat(i, f):
+    def cut_splat(i, f, rows=None):
         if every or kind == "cfr_splats":
             i, f = i.detach(), f.detach()
-        return splat(i, f)
+        return splat(i, f, rows=rows)
     monkeypatch.setattr(kernels, "bilinear_gather", cut_gather)
     monkeypatch.setattr(kernels, "bilinear_gather_pair", cut_pair)
     monkeypatch.setattr(kernels, "fwarp_splat", cut_splat)
