@@ -178,7 +178,21 @@ Phases:
      (CUDA events, ``halo.timing``), each rank's peak memory, exact
      launches of all five kernels a step on every rank; then ``cli
      --phase train --mesh_spatial S`` for one epoch on phase 7(d)'s tree
-     and ``--auto_resume`` for one more.
+     and ``--auto_resume`` for one more;
+ 12. the bench entry point: ``python -m demfi_torch.bench`` as users run
+     it, one process each (BENCH_RUNS): bare (720x1280 bfloat16, the full
+     t-batch), 352x640 bfloat16 and float32, 720x1280 float32 (one
+     instant a call), ``--t_chunk 3``, ``--readback`` and ``--wb 2``: one
+     JSON record, no error, value > 0, exit 0; one run with an injected
+     OOM: a failure record that retried one instant a call, exit 1; in
+     this process at 352x640 on the bench's weights and frames, its
+     window checksum within 1e-5 of ``forward_windows``' four fields, and
+     the launches its records name equal to the counters over one window
+     (float32 and bfloat16), and in turns the seconds of a window through
+     forward_windows (every field or the images fetched) and through the
+     bench (the full t-batch and three instants a call), with the busy
+     share of one profiled bf16 bench window; the ratio of its 352x640
+     values to 7 x phase 4's and 4b's windows/s, printed.
 Phase 3e (also under ``--kernels-of``): the three forward kernels on
 every shard of 2- and 4-way row splits of the 352x640 frame, against
 their plain versions and the unsplit kernel's rows (gather 1e-5, its
@@ -191,7 +205,7 @@ unsplit kernel after the group's reduction, with device ms and enqueue
 us beside the unsplit launch's; "row_offset" of the backward kernels'
 entries.
 
-Prints a "[9 summary]" and an "[11 summary]" line and a {"kernels":
+Prints "[9 summary]", "[11 summary]" and "[12 summary]" lines and a {"kernels":
 [...]} line, then as its last line
 {"ok": true, "device": {"platform": "gpu", ...}}. Any failed phase exits
 non-zero before either is printed; so does a run without a CUDA card.
@@ -310,6 +324,38 @@ SPLIT_TRAIN_TIMEOUT = 420      # s, for all ranks
 # share of a float32 step, each rank's peak GiB (float32 low, high)
 SPLIT_PREDICTED = {"s_per_step": (1.0, 2.0), "collectives_share": (0.5, 0.75),
                    "peak_gib": (5.5, 8.0)}
+# phase 12: ``python -m demfi_torch.bench`` as users run it, one process a
+# run: (label, flags, a marker its record's metric must hold). The first
+# runs bare (the probe, 720x1280 bfloat16, the full t-batch); the others
+# skip the probe and are cut to a few timed windows
+BENCH_RUNS = (
+    ("default", [], "(720x1280, N_tst=3, bfloat16, wb=1, device (CUDA "
+     "events, 4-window timed region), "),
+    ("352x640 bfloat16", ["--res", "352x640", "--iters", "2", "--inner", "2"],
+     "(352x640, N_tst=3, bfloat16, wb=1, device (CUDA events, 2-window "
+     "timed region)"),
+    ("352x640 float32", ["--res", "352x640", "--dtype", "float32", "--iters",
+                         "2", "--inner", "2"],
+     "(352x640, N_tst=3, float32, wb=1, device (CUDA events, 2-window timed "
+     "region)"),
+    ("720x1280 float32", ["--dtype", "float32", "--iters", "3", "--inner",
+                          "1"], "t_map (sequential per-instant)"),
+    ("352x640 float32 --t_chunk 3", ["--res", "352x640", "--dtype", "float32",
+                                     "--t_chunk", "3", "--iters", "2",
+                                     "--inner", "1"], ", t_chunk=3)"),
+    ("352x640 bfloat16 --readback", ["--res", "352x640", "--readback",
+                                     "--iters", "3"], "e2e+readback"),
+    ("352x640 bfloat16 --wb 2", ["--res", "352x640", "--wb", "2", "--iters",
+                                 "2", "--inner", "1"], "bfloat16, wb=2, "),
+)
+BENCH_TIMEOUT = 300            # s, one bench process
+BENCH_RTOL = 1e-5              # the bench's checksum against the engine's
+BENCH_INNER = 2                # windows a timed region, in this process
+# the fields InferenceEngine(fetch="full") copies to the host
+BENCH_FULL_FETCH = ("s0_prime", "s1_prime", "st_prime", "s0_final",
+                    "s1_final", "st_final", "flow_init", "flow_final",
+                    "occ0_init", "occ0_final", "ovlp", "blend_w0", "blend_w1",
+                    "diff_10", "diff_01")
 EMPTY_KERNEL_SRC = r"""
 #include <cuda_runtime.h>
 __global__ void demfi_empty_kernel() {}
@@ -2898,6 +2944,183 @@ def spatial_phase(torch, dev, tmp: Path, weights: dict, frames, ts,
     return summary
 
 
+def _bench_argv(flags):
+    """The command of one bench process, run from this checkout."""
+    return ([sys.executable, "-m", "demfi_torch.bench"] + flags
+            + ([] if not flags else ["--no_probe"]))
+
+
+def _bench_record(label: str, rc: int, out: str, err: str) -> dict:
+    lines = [ln for ln in out.splitlines() if ln.startswith("{")]
+    check(len(lines) == 1, f"12 bench {label}: {len(lines)} JSON lines, rc "
+          f"{rc}\n{out[-2000:]}\n{err[-2000:]}")
+    return json.loads(lines[0])
+
+
+def bench_phase(torch, dev, s_win: float, s_win16: float,
+                trace_dir: str) -> dict:
+    """Phase 12: the bench entry point (``python -m demfi_torch.bench``),
+    each run of BENCH_RUNS a process of its own as users run it: one
+    record, no error, value > 0, exit 0, its marker. One run with
+    DEMFI_BENCH_FAIL_INJECT=oom: a failure record that retried one
+    instant a call, exit 1 (it runs beside the work in this process). In
+    this process at 352x640 on the bench's weights and frames, float32
+    and bfloat16: the launches its records name against the counters over
+    one window; its float32 window checksum against the four fields of
+    ``InferenceEngine.forward_windows`` (BENCH_RTOL); then, in turns
+    (each way once forward and once backward), forward_windows on the
+    host clock, fetching every field or the images, and the bench's timed
+    region (CUDA events) at the full t-batch and at three instants a call:
+    how much of a forward_windows window its host copies take, and what
+    the t-batch costs; and, at bfloat16, the device's busy share of one
+    profiled bench window."""
+    from demfi_torch import bench
+    from demfi_torch.config import config_rb
+    from demfi_torch.infer import InferenceEngine
+    from demfi_torch.models import make_model
+    from demfi_torch.ops import kernels
+    from demfi_torch.utils.profiling import calibrate_flow_head
+
+    root = Path(__file__).resolve().parent
+    records = {}
+    for label, flags, marker in BENCH_RUNS:
+        t0 = time.perf_counter()
+        r = subprocess.run(_bench_argv(flags), cwd=root, capture_output=True,
+                           text=True, timeout=BENCH_TIMEOUT)
+        wall = time.perf_counter() - t0
+        rec = _bench_record(label, r.returncode, r.stdout, r.stderr)
+        check(r.returncode == 0 and "error" not in rec and rec["value"] > 0,
+              f"12 bench {label}: rc {r.returncode}, {rec}\n"
+              f"{r.stderr[-2000:]}")
+        check(marker in rec["metric"], f"12 bench {label}: {marker!r} not in "
+              f"{rec['metric']!r}")
+        records[label] = dict(rec, wall_s=wall)
+        say(f"[12 bench] {label}: {rec['value']} frames/s, vs_baseline "
+            f"{rec['vs_baseline']}, process wall {wall:.1f} s; "
+            f"{rec['metric']}")
+
+    # the injected OOM, beside the work below
+    oom = subprocess.Popen(
+        _bench_argv(["--res", "352x640"]), cwd=root, text=True,
+        stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+        env=dict(os.environ, DEMFI_BENCH_FAIL_INJECT="oom"))
+    try:
+        model = make_model(config_rb(5, 3), device=dev)     # seed 0
+        frames_np, frames = bench.bench_frames(1, H, W, dev)
+        calibrate_flow_head(model, frames[:1])
+        ts = torch.from_numpy(bench.TS).to(dev)
+        model16 = make_model(config_rb(5, 3, compute_dtype="bfloat16"),
+                             device=dev)
+        model16.load_state_dict(model.state_dict(), strict=True)
+        own = {}
+        for dtype, m in (("float32", model), ("bfloat16", model16)):
+            engine = InferenceEngine(m, 3)
+            res = engine.forward_windows(frames_np, bench.TS[None])
+            images = InferenceEngine(m, 3, fetch="images")
+            images.forward_windows(frames_np, bench.TS[None])
+
+            def window(m=m, chunk=None):
+                return bench.window_checksum(m, frames, ts, 3, chunk)
+            kernels.reset_launch_counts()
+            cs = float(window())
+            counts = kernels.launch_counts()
+            bf16 = kernels.bf16_launch_counts()
+            check(counts == {"bilinear_gather": GATHERS_PER_WINDOW,
+                             "fwarp_splat": SPLATS_PER_WINDOW,
+                             "fwarp_shift": 0, "bilinear_gather_bwd": 0,
+                             "fwarp_splat_bwd": 0}
+                  and bf16["bilinear_gather"] == (
+                      BF16_GATHERS_PER_WINDOW if dtype == "bfloat16" else 0),
+                  f"12 bench {dtype}: one window launched {counts}, of them "
+                  f"on bfloat16 values {bf16}")
+            text = bench.launches_text(counts, bf16, 1)
+            metric = records[f"352x640 {dtype}"]["metric"]
+            check(text in metric, f"12 bench {dtype}: {text!r} not in the "
+                  f"record's mode {metric!r}")
+            ref = bench.host_checksum(res)
+            err = abs(cs - ref) / abs(ref)
+            if dtype == "float32":
+                check(err <= BENCH_RTOL, f"12 bench: window checksum {cs} "
+                      f"against the engine's {ref}: {err:.2e} > {BENCH_RTOL}")
+            fetched = sum(v.nbytes for r in res for k, v in vars(r).items()
+                          if k in BENCH_FULL_FETCH)
+
+            def host_clock(fn):
+                t0 = time.perf_counter()
+                fn()
+                return time.perf_counter() - t0
+            ways = {
+                "forward_windows": lambda e=engine: host_clock(
+                    lambda: e.forward_windows(frames_np, bench.TS[None])),
+                "forward_windows fetch=images": lambda e=images: host_clock(
+                    lambda: e.forward_windows(frames_np, bench.TS[None])),
+                "bench": lambda w=window: bench._timed(
+                    w, 1, BENCH_INNER, True)[0],
+                "bench t_chunk 3": lambda w=window: bench._timed(
+                    lambda: w(chunk=3), 1, BENCH_INNER, True)[0]}
+            secs = {k: [] for k in ways}
+            for name in list(ways) + list(ways)[::-1]:     # in turns
+                secs[name].append(ways[name]())
+            busy = None
+            if dtype == "bfloat16":
+                _, busy = device_breakdown(
+                    torch, lambda w=window: bench._timed(w, 1, 1, True),
+                    "[12 profile] one bench window, bfloat16", trace_dir)
+            own[dtype] = dict(counts=counts, bf16=bf16, text=text,
+                              checksum=cs, engine_checksum=ref, rel_err=err,
+                              seconds=secs, full_fetch_bytes=fetched,
+                              bench_busy=busy)
+            mean = {k: sum(v) / len(v) for k, v in secs.items()}
+            say(f"[12 bench] 352x640 {dtype} in this process, the bench's "
+                f"weights: one window launched {text.split(': ')[1]} (the "
+                f"record names the same); checksum {cs:.4f}, forward_windows' "
+                f"{ref:.4f} ({err:.2e}"
+                + (f", tol {BENCH_RTOL:g}" if dtype == "float32" else
+                   ", not held at bfloat16: the splat's atomic sums end "
+                   "in other last bits from run to run, and bfloat16 "
+                   "roundings carry a flip through the depth")
+                + "); s a window in turns (forward_windows on the host "
+                f"clock, copying {fetched / 2 ** 20:.0f} MiB of fields to "
+                f"the host, or the six images' with fetch=images; the "
+                f"bench's {BENCH_INNER}-window region on CUDA events): "
+                + ", ".join(f"{k} {['%.4f' % v for v in vs]}"
+                            for k, vs in secs.items())
+                + f"; forward_windows / bench "
+                f"{mean['forward_windows'] / mean['bench']:.3f}, "
+                f"fetch=images / bench "
+                f"{mean['forward_windows fetch=images'] / mean['bench']:.3f}"
+                f", t_chunk 3 / full batch "
+                f"{mean['bench t_chunk 3'] / mean['bench']:.3f}"
+                + ("" if busy is None else
+                   f"; device busy {100 * busy:.1f} % of a profiled bench "
+                   f"window"))
+            del engine, images, res
+        del model, model16
+        out, errs = oom.communicate(timeout=BENCH_TIMEOUT)
+    finally:
+        if oom.poll() is None:          # a failed check, or a hung run
+            oom.kill()
+            oom.communicate()
+    orec = _bench_record("oom", oom.returncode, out, errs)
+    check(oom.returncode == 1 and orec.get("error_kind") == "oom"
+          and orec.get("retries") == ["oom->t_map"] and orec["value"] == 0.0,
+          f"12 bench oom: rc {oom.returncode}, {orec}")
+    say(f"[12 bench] DEMFI_BENCH_FAIL_INJECT=oom: rc 1, error_kind oom, "
+        f"retries {orec['retries']}")
+    ratios = {}
+    for dtype, s in (("float32", s_win), ("bfloat16", s_win16)):
+        fps = records[f"352x640 {dtype}"]["value"]
+        ratios[dtype] = fps / ((M - 1) / s)
+        say(f"[12 bench] 352x640 {dtype}: the bench's {fps} frames/s (its "
+            f"own process, CUDA events, checksum on the card) against 7 x "
+            f"phase {'4' if dtype == 'float32' else '4b'}'s {1 / s:.4f} "
+            f"windows/s = {(M - 1) / s:.4f} (host clock, forward_windows "
+            f"with its host copies): ratio {ratios[dtype]:.3f}")
+    summary = dict(records=records, launches=own, ratios=ratios, oom=orec)
+    say("[12 summary] " + json.dumps(summary, default=str))
+    return summary
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--profile", nargs="?", const="profile_trace",
@@ -3816,6 +4039,10 @@ def main() -> int:
                                          "bfloat16": train["bfloat16"]})
         del step_inputs
 
+    # ---------------------------------------------- 12. the bench entry point
+    torch.cuda.empty_cache()
+    bench12 = bench_phase(torch, dev, s_win, s_win16, trace_dir)
+
     if args.profile:
         traces = sorted(Path(args.profile).glob("*.pt.trace.json"))
         check(len(traces) >= 4 and all(p.stat().st_size > 0 for p in traces),
@@ -3867,6 +4094,9 @@ def main() -> int:
                          launches_spatial_path=spatial_launches[kname],
                          launches_split_train_path=split_train_launches[
                              kname],
+                         launches_bench_path=sum(
+                             bench12["launches"][d]["counts"][kname]
+                             for d in ("float32", "bfloat16")),
                          row_offset=offsets(kname),
                          times_are="per window, summed over its launches"))
 
@@ -3905,6 +4135,8 @@ def main() -> int:
                   launches_per_window=BF16_GATHERS_PER_WINDOW,
                   launches_eval_path=bf16_eval["bilinear_gather"],
                   launches_train_path=train["bf16_counts"]["bilinear_gather"],
+                  launches_bench_path=bench12["launches"]["bfloat16"]["bf16"][
+                      "bilinear_gather"],
                   row_offset=offsets("bilinear_gather", "bfloat16"),
                   times_are="per bfloat16 window, summed over its launches "
                             "of this instantiation")),
@@ -3955,7 +4187,8 @@ def main() -> int:
         "eval_engine_stream_span_share": ev["stream_span"] / ev["wall"],
         "train": {k: v for k, v in train.items()
                   if k not in ("bwd_rows", "counts", "bf16_counts")},
-        "ddp": ddp, "spatial": spatial, "split_train": split_train}))
+        "ddp": ddp, "spatial": spatial, "split_train": split_train,
+        "bench": {k: v["value"] for k, v in bench12["records"].items()}}))
     say(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))
