@@ -14,7 +14,12 @@ Departures from the reference inference driver, kept from the JAX engine:
    device-to-host copies into pinned buffers) and returns a handle;
    ``fetch_windows`` waits for it. A caller that dispatches batch N+1
    before it fetches batch N keeps the device busy while it works on
-   batch N's results on the host.
+   batch N's results on the host. While a profiler records, the
+   engine's host work before a batch's first launch (reflect padding,
+   the contiguous and pinned copies), its copies to the card and its
+   casts and copies back run in the ranges ``demfi.engine.prepare``,
+   ``demfi.engine.upload`` and ``demfi.engine.readback``
+   (:func:`demfi_torch.utils.profiling.span`).
 
 The public surface keeps the JAX engine's layout: frames come in as numpy
 [N, 4, H, W, 3] (BGR in [-1, 1], order B0, B1, B-1, B2) and
@@ -53,6 +58,7 @@ from demfi_torch.models.demfi import DeMFINet
 from demfi_torch.parallel.distributed import _collective_device
 from demfi_torch.parallel.grid import Grid, RowShard
 from demfi_torch.parallel.halo import allgather_rows
+from demfi_torch.utils.profiling import span
 
 # Device bytes per pixel-instant of a window batch, by compute dtype: the
 # peak memory allocated above the weights while serving one 352x640 x8
@@ -198,12 +204,14 @@ class InferenceEngine:
         self.fetch = fetch
         self._stream = (torch.cuda.Stream(self.device)
                         if self.device.type == "cuda" else None)
-        # windows that went through dispatch_windows, and the seconds
-        # between the CUDA events that bracket each dispatched batch on
-        # the engine's stream (stays 0 on the CPU). The span holds the
-        # gaps in which the stream waits for the host's next launch, so
-        # it bounds the device's busy time from above.
+        # windows that went through dispatch_windows, the device batches
+        # (t-chunks) they were cut into, and the seconds between the CUDA
+        # events that bracket each dispatched batch on the engine's
+        # stream (stays 0 on the CPU). The span holds the gaps in which
+        # the stream waits for the host's next launch, so it bounds the
+        # device's busy time from above.
         self.dispatched_windows = 0
+        self.dispatched_batches = 0
         self.dispatched_stream_seconds = 0.0
         self.grid = grid or Grid()
         self._whole_heights: set = set()   # heights run unsplit, printed
@@ -258,9 +266,10 @@ class InferenceEngine:
         gathered from the group's ranks."""
         n, m = ts.shape
         model = self.model
-        x = frames.to(self.device, non_blocking=True).permute(
-            0, 1, 4, 2, 3).contiguous()
-        t = ts.to(self.device, non_blocking=True).reshape(n * m, 1)
+        with span("engine.upload"):
+            x = frames.to(self.device, non_blocking=True).permute(
+                0, 1, 4, 2, 3).contiguous()
+            t = ts.to(self.device, non_blocking=True).reshape(n * m, 1)
         with model.rows(shard):
             ctx = model.extract(x).repeat(m)
             out = model.synthesize(ctx, t, self.num_update)
@@ -286,17 +295,18 @@ class InferenceEngine:
                     fgac_src_01=s01[0], fgac_ref_01=s01[1],
                     fgac_warp_01=s01[2], fgac_fcw_01=s01[3],
                     flow_01=vflows[0], flow_10=vflows[1])
-        # float32 on the device, so the host gets float32 (a no-op for a
-        # float32 model)
-        sel = {k: v.float() for k, v in sel.items()}
-        if shard is not None:
-            # every field's rows from every rank: one gather of all of them
-            names = list(sel)
-            whole = allgather_rows(torch.cat([sel[k] for k in names], dim=1),
-                                   shard)
-            parts = whole.split([sel[k].shape[1] for k in names], dim=1)
-            sel = dict(zip(names, parts))
-        return {k: nchw_to_nhwc(v) for k, v in sel.items()}
+        with span("engine.readback"):
+            # float32 on the device, so the host gets float32 (a no-op for
+            # a float32 model)
+            sel = {k: v.float() for k, v in sel.items()}
+            if shard is not None:
+                # every field's rows from every rank: one gather of all
+                names = list(sel)
+                whole = allgather_rows(
+                    torch.cat([sel[k] for k in names], dim=1), shard)
+                parts = whole.split([sel[k].shape[1] for k in names], dim=1)
+                sel = dict(zip(names, parts))
+            return {k: nchw_to_nhwc(v) for k, v in sel.items()}
 
     @staticmethod
     def _results(out: dict, n: int, m: int) -> List[WindowResult]:
@@ -311,21 +321,29 @@ class InferenceEngine:
                                 for k in _FIELDS})
                 for i in range(n)]
 
-    def _host_inputs(self, frames: np.ndarray, ts: np.ndarray):
+    def _host_inputs(self, frames: np.ndarray, ts: np.ndarray,
+                     pin: bool = False):
         """(frames, ts, shard): the rows of frames this rank computes (all
-        of them without a shard), as contiguous host tensors."""
-        shard = self.shard(frames.shape[2])
-        if shard is not None:
-            frames = frames[:, :, shard.r0:shard.r1]
-        return (torch.from_numpy(np.ascontiguousarray(frames, np.float32)),
-                torch.from_numpy(np.ascontiguousarray(ts, np.float32)), shard)
+        of them without a shard), as contiguous host tensors, pinned
+        where ``pin``."""
+        with span("engine.prepare"):
+            shard = self.shard(frames.shape[2])
+            if shard is not None:
+                frames = frames[:, :, shard.r0:shard.r1]
+            frames_t = torch.from_numpy(np.ascontiguousarray(frames,
+                                                             np.float32))
+            ts_t = torch.from_numpy(np.ascontiguousarray(ts, np.float32))
+            if pin:
+                frames_t, ts_t = frames_t.pin_memory(), ts_t.pin_memory()
+        return frames_t, ts_t, shard
 
     def _run(self, frames: np.ndarray, ts: np.ndarray) -> List[WindowResult]:
         """frames [N,4,H,W,3], ts [N,M] -> per-window results."""
         n, m = ts.shape
         out = self._forward(*self._host_inputs(frames, ts))
-        return self._results({k: v.cpu().numpy() for k, v in out.items()},
-                             n, m)
+        with span("engine.readback"):
+            host = {k: v.cpu().numpy() for k, v in out.items()}
+        return self._results(host, n, m)
 
     def _dispatch(self, frames: np.ndarray, ts: np.ndarray) -> _Pending:
         """Enqueue one device batch on the engine's stream: the input
@@ -343,7 +361,9 @@ class InferenceEngine:
         every field). On the CPU the forward runs here and ``_fetch``
         hands it back."""
         n, m = ts.shape
-        frames_t, ts_t, shard = self._host_inputs(frames, ts)
+        frames_t, ts_t, shard = self._host_inputs(
+            frames, ts, pin=self._stream is not None)
+        self.dispatched_batches += 1
         if self._stream is None:
             return _Pending(self._forward(frames_t, ts_t, shard), n, m)
         self._stream.wait_stream(torch.cuda.current_stream(self.device))
@@ -351,12 +371,13 @@ class InferenceEngine:
             start = torch.cuda.Event(enable_timing=True)
             done = torch.cuda.Event(enable_timing=True)
             start.record()
-            host = {}
-            for k, v in self._forward(frames_t.pin_memory(),
-                                      ts_t.pin_memory(), shard).items():
-                host[k] = torch.empty(v.shape, dtype=v.dtype,
-                                      pin_memory=True)
-                host[k].copy_(v, non_blocking=True)
+            out = self._forward(frames_t, ts_t, shard)
+            with span("engine.readback"):
+                host = {}
+                for k, v in out.items():
+                    host[k] = torch.empty(v.shape, dtype=v.dtype,
+                                          pin_memory=True)
+                    host[k].copy_(v, non_blocking=True)
             done.record()
         return _Pending(host, n, m, done, start)
 
@@ -446,10 +467,11 @@ class InferenceEngine:
         ``forward_window`` or ``forward_windows`` directly."""
         ts = np.asarray(ts, np.float32)
         n, m = ts.shape
-        frames, ori_h, ori_w = _pad_reflect_to_multiple(
-            frames, max(patch_boundary, 1))
-        chunk = self._effective_t_chunk(frames.shape[2], frames.shape[3],
-                                        m, n_windows=n)
+        with span("engine.prepare"):
+            frames, ori_h, ori_w = _pad_reflect_to_multiple(
+                frames, max(patch_boundary, 1))
+            chunk = self._effective_t_chunk(frames.shape[2], frames.shape[3],
+                                            m, n_windows=n)
         if chunk == 0:
             return None
         step = chunk if chunk and m > chunk else m

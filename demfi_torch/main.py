@@ -367,7 +367,7 @@ def _train(cfg: DeMFIConfig, pid: int, pcount: int) -> dict:
                 device_prefetch(loader.epoch(epoch), device)):
             timer.start()
             m = step(state, frames, ts)
-            btime.update(timer.stop(epoch=epoch, it=it))
+            btime.update(timer.stop())
             losses.update(float(m["total_loss"]))
             d1m.update(float(m["rec_D1"]))
             d2m.update(float(m["rec_D2"]))
@@ -426,7 +426,7 @@ def _train(cfg: DeMFIConfig, pid: int, pcount: int) -> dict:
     if writer:
         writer.close()
     return dict(start_epoch=start_epoch, epoch_losses=epoch_losses,
-                step_seconds=[r["seconds"] for r in timer.records],
+                step_seconds=timer.records,
                 best_PSNR=best_psnr, final=final)
 
 

@@ -11,7 +11,11 @@ into the batch (identical math).
 ``extract`` (t-independent: RDN backbone + FAC-FB) is split from
 ``synthesize`` (t-dependent), so all instants of a window share one
 backbone pass. The boosting loop is a plain Python loop; the Mixer's
-reference branch is loop-invariant and is encoded once before it.
+reference branch is loop-invariant and is encoded once before it. While
+a profiler records, ``extract``, ``synthesize`` and each boosting
+iteration inside it run in the ranges ``demfi.extract``,
+``demfi.synthesize`` and ``demfi.boost``
+(:func:`demfi_torch.utils.profiling.span`).
 
 Compute dtype (``DeMFIConfig.compute_dtype``), as the JAX model places
 it: every convolution casts its input, weight and bias to the model's
@@ -67,6 +71,7 @@ from demfi_torch.ops import (
 )
 from demfi_torch.parallel.halo import (allreduce_max, allreduce_min,
                                        exchange_rows)
+from demfi_torch.utils.profiling import span
 
 
 COMPUTE_DTYPES: Dict[str, torch.dtype] = {"float32": torch.float32,
@@ -642,144 +647,150 @@ class DeMFINet(nn.Module):
     # ---------------------------------------------------- t-independent
     def extract(self, frames: torch.Tensor) -> StageIContext:
         """RDN backbone + FAC-FB; runs once per 4-frame window."""
-        b, t, c, h, w = frames.shape
-        if t != 4:
-            raise ValueError(f"expected 4 input frames, got {t}")
-        # frame-major concat: channel index = frame * 3 + colour
-        cat = frames.reshape(b, t * c, h, w)
-        if self.remat == "backbone":
-            f0, f1, flow_01, flow_10, occ = _remat(self.FF_RDB_Module, cat)
-        else:
-            f0, f1, flow_01, flow_10, occ = self.FF_RDB_Module(cat)
-        a_f0, a_f1, bws, diffs, stacks = self.FAC_FB_Module(
-            f0, f1, flow_10, flow_01)
-        viz_stacks = (stacks + ((flow_01, flow_10),)
-                      if self.viz_internals else ())
-        return StageIContext(f0, f1, flow_01, flow_10, occ, a_f0, a_f1,
-                             bws, diffs, cat, viz_stacks)
+        with span("extract"):
+            b, t, c, h, w = frames.shape
+            if t != 4:
+                raise ValueError(f"expected 4 input frames, got {t}")
+            # frame-major concat: channel index = frame * 3 + colour
+            cat = frames.reshape(b, t * c, h, w)
+            if self.remat == "backbone":
+                f0, f1, flow_01, flow_10, occ = _remat(self.FF_RDB_Module, cat)
+            else:
+                f0, f1, flow_01, flow_10, occ = self.FF_RDB_Module(cat)
+            a_f0, a_f1, bws, diffs, stacks = self.FAC_FB_Module(
+                f0, f1, flow_10, flow_01)
+            viz_stacks = (stacks + ((flow_01, flow_10),)
+                          if self.viz_internals else ())
+            return StageIContext(f0, f1, flow_01, flow_10, occ, a_f0, a_f1,
+                                 bws, diffs, cat, viz_stacks)
 
     # ------------------------------------------------------ t-dependent
     def synthesize(self, ctx: StageIContext, t_value: torch.Tensor,
                    num_update: int) -> DeMFIOutputs:
         """t-dependent Stage I + Stage II."""
-        nf = self.nf
-        dt = self.compute_dtype
-        # [B,1,1,1], not 0-dim: a 0-dim float32 tensor times a bfloat16 one
-        # would stay bfloat16
-        t = t_value.float().reshape(-1, 1, 1, 1)
-        b0 = ctx.frames[:, 0:3]
-        b1 = ctx.frames[:, 3:6]
+        with span("synthesize"):
+            nf = self.nf
+            dt = self.compute_dtype
+            # [B,1,1,1], not 0-dim: a 0-dim float32 tensor times a bfloat16 one
+            # would stay bfloat16
+            t = t_value.float().reshape(-1, 1, 1, 1)
+            b0 = ctx.frames[:, 0:3]
+            b1 = ctx.frames[:, 3:6]
 
-        flow_t0, flow_t1 = cfr_flow_t_align(ctx.flow_01, ctx.flow_10, t,
-                                            self.fwarp_shift_d, self.shard)
-        occ_0 = torch.sigmoid(ctx.occ_0_logit.float())
-        # the features warp in the compute dtype; the gather returns
-        # float32 and the blend runs in float32
-        ft = _t_blend(*bwarp_pair(ctx.f0, ctx.f1, flow_t0, flow_t1,
-                                  self.shard), occ_0, t)
+            flow_t0, flow_t1 = cfr_flow_t_align(ctx.flow_01, ctx.flow_10, t,
+                                                self.fwarp_shift_d, self.shard)
+            occ_0 = torch.sigmoid(ctx.occ_0_logit.float())
+            # the features warp in the compute dtype; the gather returns
+            # float32 and the blend runs in float32
+            ft = _t_blend(*bwarp_pair(ctx.f0, ctx.f1, flow_t0, flow_t1,
+                                      self.shard), occ_0, t)
 
-        agg1 = torch.cat([ctx.a_f0, ctx.a_f1, ft.to(dt), flow_t0.to(dt),
-                          flow_t1.to(dt), ctx.flow_01.to(dt),
-                          ctx.flow_10.to(dt), ctx.occ_0_logit.to(dt)], dim=1)
-        agg1 = self.Refine_Module(agg1) + torch.cat(
-            [flow_t0.to(dt), flow_t1.to(dt), ctx.occ_0_logit.to(dt),
-             ctx.a_f0, ctx.a_f1], dim=1)
+            agg1 = torch.cat([ctx.a_f0, ctx.a_f1, ft.to(dt), flow_t0.to(dt),
+                              flow_t1.to(dt), ctx.flow_01.to(dt),
+                              ctx.flow_10.to(dt), ctx.occ_0_logit.to(dt)],
+                             dim=1)
+            agg1 = self.Refine_Module(agg1) + torch.cat(
+                [flow_t0.to(dt), flow_t1.to(dt), ctx.occ_0_logit.to(dt),
+                 ctx.a_f0, ctx.a_f1], dim=1)
 
-        rflow_t0 = agg1[:, 0:2].float()
-        rflow_t1 = agg1[:, 2:4].float()
-        occ_0_logit = agg1[:, 4:5].float()
-        occ_0 = torch.sigmoid(occ_0_logit)
-        r_f0 = torch.tanh(agg1[:, 5:5 + nf])
-        r_f1 = torch.tanh(agg1[:, 5 + nf:5 + 2 * nf])
-        r_ft = _t_blend(*bwarp_pair(r_f0, r_f1, rflow_t0, rflow_t1,
-                                    self.shard), occ_0, t).to(dt)
+            rflow_t0 = agg1[:, 0:2].float()
+            rflow_t1 = agg1[:, 2:4].float()
+            occ_0_logit = agg1[:, 4:5].float()
+            occ_0 = torch.sigmoid(occ_0_logit)
+            r_f0 = torch.tanh(agg1[:, 5:5 + nf])
+            r_f1 = torch.tanh(agg1[:, 5 + nf:5 + 2 * nf])
+            r_ft = _t_blend(*bwarp_pair(r_f0, r_f1, rflow_t0, rflow_t1,
+                                        self.shard), occ_0, t).to(dt)
 
-        # D1: joint 3-frame decode (frames folded into the batch)
-        bsz, _, h, w = r_f0.shape
-        dec_in = torch.stack([r_f0, r_f1, r_ft], dim=1).reshape(
-            3 * bsz, nf, h, w)
-        out = F.relu(self.Dec_first(dec_in))
-        for blk in self.Decoder_res:
-            out = blk(out)
-        out = F.relu(self.Dec_last1(out))
-        out = self.Dec_last2(out).reshape(bsz, 3, 3, h, w)
-        s0p, s1p, stp = out[:, 0], out[:, 1], out[:, 2]
+            # D1: joint 3-frame decode (frames folded into the batch)
+            bsz, _, h, w = r_f0.shape
+            dec_in = torch.stack([r_f0, r_f1, r_ft], dim=1).reshape(
+                3 * bsz, nf, h, w)
+            out = F.relu(self.Dec_first(dec_in))
+            for blk in self.Decoder_res:
+                out = blk(out)
+            out = F.relu(self.Dec_last1(out))
+            out = self.Dec_last2(out).reshape(bsz, 3, 3, h, w)
+            s0p, s1p, stp = out[:, 0], out[:, 1], out[:, 2]
 
-        flow_init = torch.cat([rflow_t0, rflow_t1], dim=1)
-        if self.use_stage2 and num_update > 0:
-            f_rec = torch.tanh(self.Ch_Reducer(
-                torch.cat([r_f0, r_f1, r_ft], dim=1)))
-            t_ref = torch.cat([flow_init.to(dt), occ_0_logit.to(dt)], dim=1)
-            length1_ref = torch.cat([ctx.flow_10, ctx.flow_01], dim=1).to(dt)
-            # the float32 frames promote this concatenation to float32, as
-            # in the JAX model; the conv that reads it casts it back
-            sp_ref = torch.cat([s0p, s1p, stp, ctx.frames], dim=1)
-            ref = torch.cat([sp_ref, length1_ref, t_ref], dim=1)
-            # loop-invariant: encoded once per window
-            ref_enc = self.Booster_Module.encode_ref(ref)
+            flow_init = torch.cat([rflow_t0, rflow_t1], dim=1)
+            if self.use_stage2 and num_update > 0:
+                f_rec = torch.tanh(self.Ch_Reducer(
+                    torch.cat([r_f0, r_f1, r_ft], dim=1)))
+                t_ref = torch.cat([flow_init.to(dt), occ_0_logit.to(dt)],
+                                  dim=1)
+                length1_ref = torch.cat([ctx.flow_10, ctx.flow_01],
+                                        dim=1).to(dt)
+                # the float32 frames promote this concatenation to float32, as
+                # in the JAX model; the conv that reads it casts it back
+                sp_ref = torch.cat([s0p, s1p, stp, ctx.frames], dim=1)
+                ref = torch.cat([sp_ref, length1_ref, t_ref], dim=1)
+                # loop-invariant: encoded once per window
+                ref_enc = self.Booster_Module.encode_ref(ref)
 
-            carry = (f_rec, flow_init.to(dt), occ_0_logit.to(dt))
-            const = (ref_enc, s0p, s1p, occ_0, rflow_t0.to(dt),
-                     rflow_t1.to(dt), ctx.flow_10.to(dt), ctx.flow_01.to(dt),
-                     ctx.frames, t)
-            ys: List[Tuple[torch.Tensor, ...]] = []
-            for _ in range(num_update):
-                carry, y = self._boost_step(carry, const)
-                ys.append(y)
-            flow_iters, occ_iters, s0_fin, s1_fin, st_fin = (
-                torch.stack(v, dim=0) for v in zip(*ys))
-            flow_preds = torch.cat([flow_init[None], flow_iters], dim=0)
-            occ0_preds = torch.cat([occ_0[None], occ_iters], dim=0)
-        else:
-            def empty(like):
-                return like.new_zeros((0,) + tuple(like.shape))
-            s0_fin, s1_fin, st_fin = empty(s0p), empty(s1p), empty(stp)
-            flow_preds = flow_init[None]
-            occ0_preds = occ_0[None]
+                carry = (f_rec, flow_init.to(dt), occ_0_logit.to(dt))
+                const = (ref_enc, s0p, s1p, occ_0, rflow_t0.to(dt),
+                         rflow_t1.to(dt), ctx.flow_10.to(dt),
+                         ctx.flow_01.to(dt), ctx.frames, t)
+                ys: List[Tuple[torch.Tensor, ...]] = []
+                for _ in range(num_update):
+                    carry, y = self._boost_step(carry, const)
+                    ys.append(y)
+                flow_iters, occ_iters, s0_fin, s1_fin, st_fin = (
+                    torch.stack(v, dim=0) for v in zip(*ys))
+                flow_preds = torch.cat([flow_init[None], flow_iters], dim=0)
+                occ0_preds = torch.cat([occ_0[None], occ_iters], dim=0)
+            else:
+                def empty(like):
+                    return like.new_zeros((0,) + tuple(like.shape))
+                s0_fin, s1_fin, st_fin = empty(s0p), empty(s1p), empty(stp)
+                flow_preds = flow_init[None]
+                occ0_preds = occ_0[None]
 
-        return DeMFIOutputs(
-            s0_prime=s0p, s1_prime=s1p, st_prime=stp,
-            s0_final=s0_fin, s1_final=s1_fin, st_final=st_fin,
-            flow_preds=flow_preds, occ0_preds=occ0_preds,
-            ovlp_b0b1=(b0 + b1) / 2.0,
-            diff_maps=ctx.diff_maps,
-            blend_weights=ctx.blend_weights,
-            viz_stacks=ctx.viz_stacks)
+            return DeMFIOutputs(
+                s0_prime=s0p, s1_prime=s1p, st_prime=stp,
+                s0_final=s0_fin, s1_final=s1_fin, st_final=st_fin,
+                flow_preds=flow_preds, occ0_preds=occ0_preds,
+                ovlp_b0b1=(b0 + b1) / 2.0,
+                diff_maps=ctx.diff_maps,
+                blend_weights=ctx.blend_weights,
+                viz_stacks=ctx.viz_stacks)
 
     def _boost_step(self, carry, const):
         """One recursive-boosting iteration. ``carry`` = (f_rec,
         delta_flow, delta_occ) in the compute dtype; ``const`` holds the
         loop invariants."""
-        dt = self.compute_dtype
-        f_rec, delta_flow, delta_occ = carry
-        (ref_enc, s0p, s1p, occ_0, rflow_t0, rflow_t1,
-         flow_10, flow_01, frames, t) = const
+        with span("boost"):
+            dt = self.compute_dtype
+            f_rec, delta_flow, delta_occ = carry
+            (ref_enc, s0p, s1p, occ_0, rflow_t0, rflow_t1,
+             flow_10, flow_01, frames, t) = const
 
-        delta = torch.cat([delta_flow, delta_occ], dim=1)
-        f_rec, d_flow, d_occ = self.Booster_Module(f_rec, None, delta,
-                                                   ref_enc=ref_enc)
-        delta_flow = delta_flow + d_flow
-        delta_occ = delta_occ + d_occ
+            delta = torch.cat([delta_flow, delta_occ], dim=1)
+            f_rec, d_flow, d_occ = self.Booster_Module(f_rec, None, delta,
+                                                       ref_enc=ref_enc)
+            delta_flow = delta_flow + d_flow
+            delta_occ = delta_occ + d_occ
 
-        ft0_f = delta_flow[:, :2].float()
-        ft1_f = delta_flow[:, 2:4].float()
-        occ_0_f = torch.sigmoid(delta_occ.float())
-        st_new = _t_blend(*bwarp_pair(s0p, s1p, ft0_f, ft1_f, self.shard),
-                          occ_0_f, t).to(dt)
+            ft0_f = delta_flow[:, :2].float()
+            ft1_f = delta_flow[:, 2:4].float()
+            occ_0_f = torch.sigmoid(delta_occ.float())
+            st_new = _t_blend(*bwarp_pair(s0p, s1p, ft0_f, ft1_f, self.shard),
+                              occ_0_f, t).to(dt)
 
-        # float32 like the JAX model's (the frames promote it); the conv
-        # that reads it casts it to the compute dtype
-        agg3 = torch.cat([s0p, s1p, st_new, f_rec, occ_0.to(dt), rflow_t0,
-                          rflow_t1, flow_10, flow_01, ft0_f.to(dt),
-                          ft1_f.to(dt), occ_0_f.to(dt), frames], dim=1)
-        out = F.relu(self.Dec_first_2(agg3))
-        for blk in self.Decoder_res_2:
-            out = blk(out)
-        out = F.relu(self.Dec_last1_2(out))
-        out = self.Dec_last2_2(out)
-        ys = (delta_flow.float(), occ_0_f, out[:, 0:3] + s0p,
-              out[:, 3:6] + s1p, out[:, 6:9] + st_new)
-        return (f_rec, delta_flow, delta_occ), ys
+            # float32 like the JAX model's (the frames promote it); the conv
+            # that reads it casts it to the compute dtype
+            agg3 = torch.cat([s0p, s1p, st_new, f_rec, occ_0.to(dt), rflow_t0,
+                              rflow_t1, flow_10, flow_01, ft0_f.to(dt),
+                              ft1_f.to(dt), occ_0_f.to(dt), frames], dim=1)
+            out = F.relu(self.Dec_first_2(agg3))
+            for blk in self.Decoder_res_2:
+                out = blk(out)
+            out = F.relu(self.Dec_last1_2(out))
+            out = self.Dec_last2_2(out)
+            ys = (delta_flow.float(), occ_0_f, out[:, 0:3] + s0p,
+                  out[:, 3:6] + s1p, out[:, 6:9] + st_new)
+            return (f_rec, delta_flow, delta_occ), ys
 
     def forward(self, frames, t_value, num_update: int = 1) -> DeMFIOutputs:
         return self.synthesize(self.extract(frames), t_value, num_update)

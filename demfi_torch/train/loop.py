@@ -43,6 +43,7 @@ from demfi_torch.config import DeMFIConfig
 from demfi_torch.models.demfi import DeMFINet, DeMFIOutputs
 from demfi_torch.parallel.grid import Grid
 from demfi_torch.parallel.halo import allreduce_sum, reduce_gradients
+from demfi_torch.utils.profiling import span
 
 
 @dataclasses.dataclass
@@ -116,7 +117,11 @@ def make_train_step(cfg: DeMFIConfig, grid: Optional[Grid] = None
     model's device, and returns the metrics as 0-d device tensors beside
     the lr. ``on_phase``, where given, is called with "forward",
     "backward" and "optimizer" as each part has been enqueued (a timer
-    records an event there).
+    records an event there). While a profiler records, the parts run in
+    the ranges ``demfi.step.forward`` (the batch's copy to the model's
+    device, the forward and the loss), ``demfi.step.backward`` (the
+    backward and, with a spatial axis, the gradients' sum) and
+    ``demfi.step.optimizer``.
 
     ``grid`` (``demfi_torch.parallel.make_grid``) with a spatial axis:
     every rank of the process group calls the step on its data group's
@@ -145,34 +150,38 @@ def make_train_step(cfg: DeMFIConfig, grid: Optional[Grid] = None
             else:
                 frames = frames[:, :, shard.r0:shard.r1]
                 weight = shard.rows / shard.h
-        x = frames.to(dev, non_blocking=True).permute(0, 1, 4, 2, 3)
-        t = torch.as_tensor(t_value).to(dev, non_blocking=True)
-        inputs = x[:, :4].contiguous()
-        gtt, gt0, gt1 = x[:, 4], x[:, 5], x[:, 6]
         state.optimizer.zero_grad(set_to_none=True)
         # also where the caller turned it off; the backward runs on the
         # rows too (remat recomputes there)
         with torch.enable_grad(), (model.rows(shard) if spatial
                                    else contextlib.nullcontext()):
-            out = net(inputs, t, num_update=cfg.N_trn)
-            total, metrics = demfi_loss(
-                cfg, out, gt0, gt1, gtt,
-                loss_fn=_rec_loss(cfg.loss_type, weight))
+            with span("step.forward"):
+                x = frames.to(dev, non_blocking=True).permute(0, 1, 4, 2, 3)
+                t = torch.as_tensor(t_value).to(dev, non_blocking=True)
+                inputs = x[:, :4].contiguous()
+                gtt, gt0, gt1 = x[:, 4], x[:, 5], x[:, 6]
+                out = net(inputs, t, num_update=cfg.N_trn)
+                total, metrics = demfi_loss(
+                    cfg, out, gt0, gt1, gtt,
+                    loss_fn=_rec_loss(cfg.loss_type, weight))
             if on_phase is not None:
                 on_phase("forward")
-            total.backward()
-        if spatial:
-            reduce_gradients(model.parameters(), 1.0 / grid.data)
-            names = list(metrics)
-            summed = torch.stack([metrics[k].detach() for k in names])
-            if shard is not None:
-                summed = allreduce_sum(summed, shard)
-            else:
-                summed = summed * grid.spatial
-            metrics = dict(zip(names, summed.unbind()))
+            with span("step.backward"):
+                total.backward()
+                if spatial:
+                    reduce_gradients(model.parameters(), 1.0 / grid.data)
+                    names = list(metrics)
+                    summed = torch.stack([metrics[k].detach()
+                                          for k in names])
+                    if shard is not None:
+                        summed = allreduce_sum(summed, shard)
+                    else:
+                        summed = summed * grid.spatial
+                    metrics = dict(zip(names, summed.unbind()))
         if on_phase is not None:
             on_phase("backward")
-        state.optimizer.step()
+        with span("step.optimizer"):
+            state.optimizer.step()
         if on_phase is not None:
             on_phase("optimizer")
         metrics = {k: v.detach() for k, v in metrics.items()}

@@ -1,16 +1,42 @@
-"""A profiler trace, synthetic-benchmark helpers and a per-step timer."""
+"""The program's spans, a profiler trace, synthetic-benchmark helpers and
+a per-step timer."""
 from __future__ import annotations
 
 import contextlib
-import json
 import os
 import time
-from typing import Dict, List, Optional
+from typing import TYPE_CHECKING, List
 
 import numpy as np
 import torch
+from torch.autograd import _profiler_enabled
 
-from demfi_torch.models.demfi import DeMFINet
+if TYPE_CHECKING:
+    from demfi_torch.models.demfi import DeMFINet
+
+_OFF = contextlib.nullcontext()
+
+
+def span(name: str):
+    """A named range ``demfi.<name>`` around a block, in the profiler's
+    timeline beside the kernels it launches, while a profiler records on
+    this thread (``torch.profiler``, :func:`device_trace`, or
+    ``torch.autograd.profiler.emit_nvtx`` under Nsight); otherwise one
+    shared null context: a span that is off costs one call that reads
+    the profiler's state and allocates nothing. Usage:
+
+        with span("extract"):
+            ...
+
+    The program's spans: ``engine.prepare``, ``engine.upload``,
+    ``engine.readback`` (the inference engine's host work, its copies
+    to the card, and its casts and copies back); ``step.forward``,
+    ``step.backward``, ``step.optimizer`` (the train step's phases);
+    ``extract``, ``synthesize`` and ``boost`` (the model's Stage I, its
+    t-dependent part, and each boosting iteration inside that)."""
+    if not _profiler_enabled():
+        return _OFF
+    return torch.profiler.record_function("demfi." + name)
 
 
 @contextlib.contextmanager
@@ -18,9 +44,10 @@ def device_trace(logdir: str):
     """A ``torch.profiler`` trace of the block, written under ``logdir``
     when it ends (a Chrome trace, ``<host>_<pid>.<ms>.pt.trace.json``,
     that TensorBoard's profiler plugin and Perfetto open). It records the
-    host's operators, and the card's kernels and copies where CUDA is
-    present. Yields the profiler, whose ``events()`` and
-    ``key_averages()`` the caller may read after the block. Usage:
+    host's operators, the program's ``demfi.`` spans (:func:`span`), and
+    the card's kernels and copies where CUDA is present. Yields the
+    profiler, whose ``events()`` and ``key_averages()`` the caller may
+    read after the block. Usage:
 
         with device_trace("./log_dir/profile"):
             engine.forward_windows(frames, ts)
@@ -66,16 +93,15 @@ def calibrate_flow_head(model: DeMFINet, frames: torch.Tensor,
 
 
 class StepTimer:
-    """Per-step seconds with JSONL output. On a CUDA device a step is
-    timed by CUDA events on the current stream, so a step's seconds are
-    the device's from its start to its end and do not end before its
-    work does; on the CPU by the host clock. ``stop`` waits for the
-    step's end event."""
+    """Per-step seconds, in ``records``. On a CUDA device a step is timed
+    by CUDA events on the current stream, so a step's seconds are the
+    device's from its start to its end and do not end before its work
+    does; on the CPU by the host clock. ``stop`` waits for the step's end
+    event."""
 
-    def __init__(self, device=None, path: Optional[str] = None):
+    def __init__(self, device=None):
         self.cuda = torch.device(device or "cpu").type == "cuda"
-        self.path = path
-        self.records: List[dict] = []
+        self.records: List[float] = []
         self._start = None
 
     def start(self) -> None:
@@ -85,7 +111,7 @@ class StepTimer:
         else:
             self._start = time.perf_counter()
 
-    def stop(self, **tags) -> float:
+    def stop(self) -> float:
         if self.cuda:
             end = torch.cuda.Event(enable_timing=True)
             end.record()
@@ -93,17 +119,5 @@ class StepTimer:
             dt = self._start.elapsed_time(end) / 1e3
         else:
             dt = time.perf_counter() - self._start
-        rec = {"seconds": dt, **tags}
-        self.records.append(rec)
-        if self.path:
-            with open(self.path, "a") as f:
-                f.write(json.dumps(rec) + "\n")
+        self.records.append(dt)
         return dt
-
-    def summary(self) -> Dict[str, float]:
-        if not self.records:
-            return {}
-        xs = sorted(r["seconds"] for r in self.records)
-        n = len(xs)
-        return {"count": n, "mean": sum(xs) / n, "p50": xs[n // 2],
-                "p90": xs[int(n * 0.9)], "min": xs[0], "max": xs[-1]}
