@@ -8,7 +8,9 @@ by hand (``demfi_torch/csrc``), each with a plain PyTorch version beside
 it (``demfi_torch/ops/warp.py``) that the CPU takes.
 
 Layout conventions:
-  - modules work on NCHW tensors: images / features [B, C, H, W];
+  - modules work on [B, C, H, W] tensors (images / features), held
+    channels_last in memory by a bfloat16 model on the card and NCHW
+    otherwise (``demfi_torch.models.demfi.activation_format``);
   - flows are [B, 2, H, W] with channel 0 = dx (along W) and
     channel 1 = dy (along H);
   - frame stacks entering the model are [B, 4, 3, H, W] in the order

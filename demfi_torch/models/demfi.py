@@ -1,4 +1,4 @@
-"""DeMFI-Net in PyTorch (NCHW).
+"""DeMFI-Net in PyTorch ([B, C, H, W] tensors).
 
 Stage I (feature-flow warping and blending, FAC-FB, refine U-Net, joint
 3-frame decoder) and Stage II (recursive boosting with a separable
@@ -28,6 +28,21 @@ float32 weights and return float32, and the blends that follow run in
 float32 and are cast back only where the JAX model casts them. Pieces
 are cast before each ``torch.cat`` where the JAX model concatenates cast
 operands (``torch.cat`` promotes a mixed list to float32).
+
+Memory format (:func:`activation_format`): where the convolutions run
+in bfloat16 on a CUDA device, the activations are ``torch.channels_last``
+from the model's input (converted once in ``extract``) to its outputs,
+and each convolution gets its input and its weight's compute-dtype cast
+in NHWC, which cuDNN's bfloat16 engines compute in; NCHW would cost a
+transpose in and out of every convolution. Every other run (float32,
+and every CPU run) is NCHW. The ops between convolutions keep their
+input's format: the folds of frames into the batch concatenate along
+it, space-to-depth, the pixel shuffle and the instants' repeat follow
+their input (``demfi_torch.ops.reshape``), and the warps' float32 NCHW
+outputs are cast into the format where they join a concatenation. The
+warp kernels take NCHW: their inputs are copied there
+(``kernels.nchw``). ``kernels.layout_counts`` counts the convolutions,
+those whose input arrived in the format, and those copies.
 
 Rows of a split frame (``--mesh_spatial``, :meth:`DeMFINet.rows`): the
 model may run on rows [r0, r1) of a frame whose other rows other ranks
@@ -66,9 +81,12 @@ from demfi_torch.config import DeMFIConfig
 from demfi_torch.ops import (
     bwarp_pair,
     cfr_flow_t_align,
+    depth_to_space,
     fgac_correlate,
+    kernels,
     space_to_depth,
 )
+from demfi_torch.ops.reshape import repeat_batch
 from demfi_torch.parallel.halo import (allreduce_max, allreduce_min,
                                        exchange_rows)
 from demfi_torch.utils.profiling import span
@@ -89,18 +107,44 @@ def _remat(fn, *args):
     return checkpoint(fn, *args, use_reentrant=False)
 
 
+def activation_format(dtype: torch.dtype,
+                      device: torch.device) -> torch.memory_format:
+    """The memory format of the model's activations when its convolutions
+    compute in ``dtype`` on ``device``: channels_last for bfloat16 on a
+    CUDA device (cuDNN's bfloat16 engines compute in NHWC, and transpose
+    NCHW tensors in and out), NCHW (``torch.contiguous_format``)
+    otherwise (cuDNN's float32 kernels with TF32 off compute in NCHW)."""
+    if dtype == torch.bfloat16 and device.type == "cuda":
+        return torch.channels_last
+    return torch.contiguous_format
+
+
+def _as(x: torch.Tensor, dt: torch.dtype,
+        fmt: torch.memory_format) -> torch.Tensor:
+    """``x.to(dt)``, and in channels_last where that is the model's format
+    ``fmt`` (one copy that casts and lays out; none where x already is)."""
+    if fmt == torch.contiguous_format:
+        return x.to(dt)
+    return x.to(dt, memory_format=fmt)
+
+
 def _conv_in(dt: torch.dtype, conv, x: torch.Tensor, weight: torch.Tensor,
              bias: torch.Tensor) -> torch.Tensor:
-    """``conv(x, weight, bias)`` in the compute dtype ``dt``. At float32
-    the bias is fused into the convolution. At bfloat16 the input, weight
-    and bias are cast and the bias is added after the convolution, in
-    bfloat16, as flax's ``nn.Conv(dtype=bfloat16)`` does: the convolution
-    rounds once and the bias add once more. Fusing the bias rounds once,
-    and that one rounding moves the bfloat16 network's outputs as far from
-    the JAX model's as bfloat16 moves them from float32."""
+    """``conv(x, weight, bias)`` in the compute dtype ``dt``, its input and
+    weight in the model's memory format (:func:`activation_format`;
+    counted in ``kernels.layout_counts``). At float32 the bias is fused
+    into the convolution. At bfloat16 the bias is cast and added after the
+    convolution, in bfloat16, as flax's ``nn.Conv(dtype=bfloat16)`` does:
+    the convolution rounds once and the bias add once more. Fusing the
+    bias rounds once, and that one rounding moves the bfloat16 network's
+    outputs as far from the JAX model's as bfloat16 moves them from
+    float32."""
+    fmt = activation_format(dt, x.device)
+    kernels.count_conv(x.is_contiguous(memory_format=fmt))
+    x, weight = _as(x, dt, fmt), _as(weight, dt, fmt)
     if dt == torch.float32:
         return conv(x, weight, bias)
-    return conv(x.to(dt), weight.to(dt), None) + bias.to(dt)[:, None, None]
+    return conv(x, weight, None) + bias.to(dt)[:, None, None]
 
 
 def _rows_conv(shard, stride, padding):
@@ -210,10 +254,20 @@ def rows_of(module: nn.Module, shard):
 
 
 def _nearest_up2(x: torch.Tensor) -> torch.Tensor:
-    """UpsamplingNearest2d(scale_factor=2)."""
-    b, c, h, w = x.shape
-    return x[:, :, :, None, :, None].expand(b, c, h, 2, w, 2).reshape(
-        b, c, 2 * h, 2 * w)
+    """UpsamplingNearest2d(scale_factor=2), in x's memory format."""
+    return F.interpolate(x, scale_factor=2, mode="nearest")
+
+
+class _DepthToSpace(nn.Module):
+    """nn.PixelShuffle in its input's memory format (``depth_to_space``;
+    no parameters, so the ``state_dict`` keys are the reference's)."""
+
+    def __init__(self, r: int):
+        super().__init__()
+        self.r = r
+
+    def forward(self, x):
+        return depth_to_space(x, self.r)
 
 
 # --------------------------------------------------------------------------
@@ -260,7 +314,7 @@ class FFRDB(nn.Module):
         self.RDBs = nn.ModuleList([RDB(g0, growth, n_convs)
                                    for _ in range(num_rdb)])
         self.GFF = nn.Sequential(_conv(num_rdb * g0, g0, 1), _conv(g0, g0, 3))
-        self.UPNet = nn.Sequential(_conv(g0, 256, 3), nn.PixelShuffle(2),
+        self.UPNet = nn.Sequential(_conv(g0, 256, 3), _DepthToSpace(2),
                                    _conv(64, nf * 2 + 4 + 1, 3))
 
     def forward(self, frames):
@@ -315,11 +369,13 @@ class FGAC(nn.Module):
         self.w_gen_2 = _conv(nf, 1, 3)
 
     def forward(self, ref, source, flow_s2r):
+        dt = self.compute_dtype
         ref_k = self.conv_ref_k(ref)
         source_k = self.conv_source_k(source)
-        fac = fgac_correlate(ref_k.float(), source_k.float(),
-                             flow_s2r.float(), rr=self.rr, sr=self.sr,
-                             shard=self.shard).to(self.compute_dtype)
+        fac = _as(fgac_correlate(ref_k.float(), source_k.float(),
+                                 flow_s2r.float(), rr=self.rr, sr=self.sr,
+                                 shard=self.shard),
+                  dt, activation_format(dt, ref.device))
         e_s = self.fusion(fac)
         w = _sigmoid(self.w_gen_2(F.relu(self.w_gen(
             torch.cat([source, e_s], dim=1)))))
@@ -357,12 +413,11 @@ class FACFB(nn.Module):
             self.FGAC_F0toF1 = FGAC(nf, rr, sr, viz)
 
     def forward(self, f0, f1, flow_10, flow_01):
-        b, c, h, w = f0.shape
-        x = torch.stack([f0, f1], dim=1).reshape(b * 2, c, h, w)
-        x = F.relu(self.conv_first(x))
+        b = f0.shape[0]
+        # both frames folded into the batch (frame-major), in their format
+        x = F.relu(self.conv_first(torch.cat([f0, f1], dim=0)))
         x = self.feature_extraction(x)
-        enc = x.reshape(b, 2, self.nf, h, w)
-        enc0, enc1 = enc[:, 0], enc[:, 1]
+        enc0, enc1 = x[:b], x[b:]
         g10 = self.shared_FGAC if self.shared else self.FGAC_F1toF0
         g01 = self.shared_FGAC if self.shared else self.FGAC_F0toF1
         a_f0, bw0, d10, x10 = g10(enc1, enc0, flow_01)   # F1 -> F0
@@ -493,7 +548,8 @@ class Booster(nn.Module):
 @dataclasses.dataclass
 class DeMFIOutputs:
     """Everything the reference forward returns, per-iteration lists
-    stacked on axis 0 (NCHW)."""
+    stacked on axis 0 ([..., C, H, W]; in the model's memory format where
+    not stacked)."""
     s0_prime: torch.Tensor          # [B,3,H,W]
     s1_prime: torch.Tensor
     st_prime: torch.Tensor
@@ -528,11 +584,11 @@ class StageIContext:
 
     def repeat(self, m: int) -> "StageIContext":
         """Each batch element repeated m times (element-major), for m
-        instants per window."""
+        instants per window, each tensor in its memory format."""
         def rep(v):
             if isinstance(v, tuple):
                 return tuple(rep(x) for x in v)
-            return torch.repeat_interleave(v, m, dim=0)
+            return repeat_batch(v, m)
         return StageIContext(**{f.name: rep(getattr(self, f.name))
                                 for f in dataclasses.fields(self)})
 
@@ -651,8 +707,11 @@ class DeMFINet(nn.Module):
             b, t, c, h, w = frames.shape
             if t != 4:
                 raise ValueError(f"expected 4 input frames, got {t}")
-            # frame-major concat: channel index = frame * 3 + colour
-            cat = frames.reshape(b, t * c, h, w)
+            # frame-major concat: channel index = frame * 3 + colour, in
+            # the model's memory format from here to the outputs
+            cat = frames.reshape(b, t * c, h, w).contiguous(
+                memory_format=activation_format(self.compute_dtype,
+                                                frames.device))
             if self.remat == "backbone":
                 f0, f1, flow_01, flow_10, occ = _remat(self.FF_RDB_Module, cat)
             else:
@@ -671,6 +730,10 @@ class DeMFINet(nn.Module):
         with span("synthesize"):
             nf = self.nf
             dt = self.compute_dtype
+            fmt = activation_format(dt, t_value.device)
+
+            def cast(v):          # a cat's piece, in the model's format
+                return _as(v, dt, fmt)
             # [B,1,1,1], not 0-dim: a 0-dim float32 tensor times a bfloat16 one
             # would stay bfloat16
             t = t_value.float().reshape(-1, 1, 1, 1)
@@ -685,12 +748,12 @@ class DeMFINet(nn.Module):
             ft = _t_blend(*bwarp_pair(ctx.f0, ctx.f1, flow_t0, flow_t1,
                                       self.shard), occ_0, t)
 
-            agg1 = torch.cat([ctx.a_f0, ctx.a_f1, ft.to(dt), flow_t0.to(dt),
-                              flow_t1.to(dt), ctx.flow_01.to(dt),
-                              ctx.flow_10.to(dt), ctx.occ_0_logit.to(dt)],
+            agg1 = torch.cat([ctx.a_f0, ctx.a_f1, cast(ft), cast(flow_t0),
+                              cast(flow_t1), cast(ctx.flow_01),
+                              cast(ctx.flow_10), cast(ctx.occ_0_logit)],
                              dim=1)
             agg1 = self.Refine_Module(agg1) + torch.cat(
-                [flow_t0.to(dt), flow_t1.to(dt), ctx.occ_0_logit.to(dt),
+                [cast(flow_t0), cast(flow_t1), cast(ctx.occ_0_logit),
                  ctx.a_f0, ctx.a_f1], dim=1)
 
             rflow_t0 = agg1[:, 0:2].float()
@@ -699,28 +762,27 @@ class DeMFINet(nn.Module):
             occ_0 = torch.sigmoid(occ_0_logit)
             r_f0 = torch.tanh(agg1[:, 5:5 + nf])
             r_f1 = torch.tanh(agg1[:, 5 + nf:5 + 2 * nf])
-            r_ft = _t_blend(*bwarp_pair(r_f0, r_f1, rflow_t0, rflow_t1,
-                                        self.shard), occ_0, t).to(dt)
+            r_ft = cast(_t_blend(*bwarp_pair(r_f0, r_f1, rflow_t0, rflow_t1,
+                                             self.shard), occ_0, t))
 
-            # D1: joint 3-frame decode (frames folded into the batch)
-            bsz, _, h, w = r_f0.shape
-            dec_in = torch.stack([r_f0, r_f1, r_ft], dim=1).reshape(
-                3 * bsz, nf, h, w)
-            out = F.relu(self.Dec_first(dec_in))
+            # D1: joint 3-frame decode (frames folded into the batch,
+            # frame-major)
+            bsz = r_f0.shape[0]
+            out = F.relu(self.Dec_first(torch.cat([r_f0, r_f1, r_ft], dim=0)))
             for blk in self.Decoder_res:
                 out = blk(out)
             out = F.relu(self.Dec_last1(out))
-            out = self.Dec_last2(out).reshape(bsz, 3, 3, h, w)
-            s0p, s1p, stp = out[:, 0], out[:, 1], out[:, 2]
+            out = self.Dec_last2(out)
+            s0p, s1p, stp = out[:bsz], out[bsz:2 * bsz], out[2 * bsz:]
 
             flow_init = torch.cat([rflow_t0, rflow_t1], dim=1)
             if self.use_stage2 and num_update > 0:
                 f_rec = torch.tanh(self.Ch_Reducer(
                     torch.cat([r_f0, r_f1, r_ft], dim=1)))
-                t_ref = torch.cat([flow_init.to(dt), occ_0_logit.to(dt)],
+                t_ref = torch.cat([cast(flow_init), cast(occ_0_logit)],
                                   dim=1)
-                length1_ref = torch.cat([ctx.flow_10, ctx.flow_01],
-                                        dim=1).to(dt)
+                length1_ref = cast(torch.cat([ctx.flow_10, ctx.flow_01],
+                                             dim=1))
                 # the float32 frames promote this concatenation to float32, as
                 # in the JAX model; the conv that reads it casts it back
                 sp_ref = torch.cat([s0p, s1p, stp, ctx.frames], dim=1)
@@ -728,13 +790,13 @@ class DeMFINet(nn.Module):
                 # loop-invariant: encoded once per window
                 ref_enc = self.Booster_Module.encode_ref(ref)
 
-                carry = (f_rec, flow_init.to(dt), occ_0_logit.to(dt))
-                const = (ref_enc, s0p, s1p, occ_0, rflow_t0.to(dt),
-                         rflow_t1.to(dt), ctx.flow_10.to(dt),
-                         ctx.flow_01.to(dt), ctx.frames, t)
+                carry = (f_rec, cast(flow_init), cast(occ_0_logit))
+                const = (ref_enc, s0p, s1p, cast(occ_0), cast(rflow_t0),
+                         cast(rflow_t1), cast(ctx.flow_10),
+                         cast(ctx.flow_01), ctx.frames, t)
                 ys: List[Tuple[torch.Tensor, ...]] = []
                 for _ in range(num_update):
-                    carry, y = self._boost_step(carry, const)
+                    carry, y = self._boost_step(carry, const, cast)
                     ys.append(y)
                 flow_iters, occ_iters, s0_fin, s1_fin, st_fin = (
                     torch.stack(v, dim=0) for v in zip(*ys))
@@ -756,12 +818,12 @@ class DeMFINet(nn.Module):
                 blend_weights=ctx.blend_weights,
                 viz_stacks=ctx.viz_stacks)
 
-    def _boost_step(self, carry, const):
+    def _boost_step(self, carry, const, cast):
         """One recursive-boosting iteration. ``carry`` = (f_rec,
         delta_flow, delta_occ) in the compute dtype; ``const`` holds the
-        loop invariants."""
+        loop invariants; ``cast`` takes a tensor to the compute dtype and
+        the model's memory format."""
         with span("boost"):
-            dt = self.compute_dtype
             f_rec, delta_flow, delta_occ = carry
             (ref_enc, s0p, s1p, occ_0, rflow_t0, rflow_t1,
              flow_10, flow_01, frames, t) = const
@@ -775,14 +837,14 @@ class DeMFINet(nn.Module):
             ft0_f = delta_flow[:, :2].float()
             ft1_f = delta_flow[:, 2:4].float()
             occ_0_f = torch.sigmoid(delta_occ.float())
-            st_new = _t_blend(*bwarp_pair(s0p, s1p, ft0_f, ft1_f, self.shard),
-                              occ_0_f, t).to(dt)
+            st_new = cast(_t_blend(*bwarp_pair(s0p, s1p, ft0_f, ft1_f,
+                                               self.shard), occ_0_f, t))
 
             # float32 like the JAX model's (the frames promote it); the conv
             # that reads it casts it to the compute dtype
-            agg3 = torch.cat([s0p, s1p, st_new, f_rec, occ_0.to(dt), rflow_t0,
-                              rflow_t1, flow_10, flow_01, ft0_f.to(dt),
-                              ft1_f.to(dt), occ_0_f.to(dt), frames], dim=1)
+            agg3 = torch.cat([s0p, s1p, st_new, f_rec, occ_0, rflow_t0,
+                              rflow_t1, flow_10, flow_01, cast(ft0_f),
+                              cast(ft1_f), cast(occ_0_f), frames], dim=1)
             out = F.relu(self.Dec_first_2(agg3))
             for blk in self.Decoder_res_2:
                 out = blk(out)

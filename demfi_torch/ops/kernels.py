@@ -99,7 +99,10 @@ a TypeError, never converted: bfloat16 reaches only the gather's
 image). Each wrapper counts its launches in ``<wrapper>.launches``,
 incremented where the kernel is launched and nowhere else; the gather
 and its backward count their bfloat16 instantiation's launches in
-``<wrapper>.bf16_launches`` as well.
+``<wrapper>.bf16_launches`` as well. Beside them, :func:`layout_counts`
+counts the model's convolution calls, those whose input arrived in the
+model's activation layout, and the NCHW copies that the kernels'
+boundary (:func:`nchw`) makes of channels_last inputs.
 """
 from __future__ import annotations
 
@@ -114,6 +117,7 @@ from typing import Dict, Optional, Tuple
 
 import torch
 
+from demfi_torch.ops import reshape as _reshape
 from demfi_torch.ops import warp as _warp
 
 _PKG = Path(__file__).resolve().parent.parent
@@ -1076,6 +1080,44 @@ def bf16_launch_counts() -> Dict[str, int]:
     backward's bfloat16-image instantiations."""
     return {fn.__name__: fn.bf16_launches
             for fn in (bilinear_gather, bilinear_gather_bwd)}
+
+
+LAYOUT_COUNTS = ("conv_calls", "conv_in_layout", "warp_copies")
+_layout = dict.fromkeys(LAYOUT_COUNTS, 0)
+
+
+def count_conv(in_layout: bool) -> None:
+    """Count one convolution call of the model, and whether its input
+    arrived in the model's activation layout
+    (``demfi_torch.models.demfi.activation_format``)."""
+    _layout["conv_calls"] += 1
+    _layout["conv_in_layout"] += bool(in_layout)
+
+
+def nchw(t: torch.Tensor) -> torch.Tensor:
+    """t as the warp kernels take it: contiguous NCHW. The copy of an
+    input held channels_last (``reshape.channels_last``) is counted in
+    :func:`layout_counts`; a view of an NCHW tensor is copied as
+    before."""
+    if t.is_contiguous():
+        return t
+    _layout["warp_copies"] += _reshape.channels_last(t)
+    return t.contiguous()
+
+
+def reset_layout_counts() -> None:
+    for k in LAYOUT_COUNTS:
+        _layout[k] = 0
+
+
+def layout_counts() -> Dict[str, int]:
+    """Since the last reset: the model's convolution calls
+    (``conv_calls``: ``_Conv``, ``_Conv3dT1`` and the GRU's fused and q
+    convolutions), how many of them got their input already in the
+    model's activation layout (``conv_in_layout``), and the copies into
+    NCHW of channels_last inputs at the warp kernels' boundary
+    (``warp_copies``)."""
+    return dict(_layout)
 
 
 def fwarp_served(device=None, reset: bool = False) -> Dict[str, int]:

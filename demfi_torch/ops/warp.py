@@ -33,6 +33,10 @@ the JAX package does; ``F.grid_sample`` is not used (its
 normalise/unnormalise round trip differs in the last bits).
 
 Flows: [B, 2, H, W], channel 0 = dx (along W), channel 1 = dy (along H).
+The kernels take contiguous NCHW tensors, and each public op hands them
+its inputs through ``kernels.nchw``: a channels_last input (the bf16
+model's on the card) is copied there, and the copy counted
+(``kernels.layout_counts``); the outputs are NCHW.
 
 Rows of a split frame: each public op takes ``shard``, a
 :class:`~demfi_torch.parallel.RowShard` (None: the whole frame). Its
@@ -286,10 +290,10 @@ def bwarp(x: torch.Tensor, flow: torch.Tensor, shard=None) -> torch.Tensor:
     mask (in-image weight >= 0.999)."""
     if shard is not None:
         out, _ = kernels.bilinear_gather(
-            allgather_rows(x, shard), flow.contiguous(), relative=True,
+            allgather_rows(x, shard), kernels.nchw(flow), relative=True,
             want_ones=False, row0=shard.r0)
         return out
-    out, _ = kernels.bilinear_gather(x.contiguous(), flow.contiguous(),
+    out, _ = kernels.bilinear_gather(kernels.nchw(x), kernels.nchw(flow),
                                      relative=True, want_ones=False)
     return out
 
@@ -307,12 +311,12 @@ def bwarp_pair(a: torch.Tensor, b: torch.Tensor,
     if shard is not None:
         outs, _ = kernels.bilinear_gather_pair(
             allgather_rows(a, shard), allgather_rows(b, shard),
-            flow_a.contiguous(), flow_b.contiguous(), relative=True,
+            kernels.nchw(flow_a), kernels.nchw(flow_b), relative=True,
             row0=shard.r0)
         return outs
     outs, _ = kernels.bilinear_gather_pair(
-        a.contiguous(), b.contiguous(), flow_a.contiguous(),
-        flow_b.contiguous(), relative=True)
+        kernels.nchw(a), kernels.nchw(b), kernels.nchw(flow_a),
+        kernels.nchw(flow_b), relative=True)
     return outs
 
 
@@ -323,7 +327,7 @@ def bilinear_sample_abs(img: torch.Tensor, coords: torch.Tensor, shard=None
     (FGAC's trained-in absolute-coordinate behaviour)."""
     if shard is not None:
         img = allgather_rows(img, shard)
-    out, _ = kernels.bilinear_gather(img.contiguous(), coords.contiguous(),
+    out, _ = kernels.bilinear_gather(kernels.nchw(img), kernels.nchw(coords),
                                      relative=False)
     return out
 
@@ -399,8 +403,8 @@ def fwarp(img: torch.Tensor, flo: torch.Tensor, shift_d: int = 0, shard=None
     atomic splat otherwise; both are exact, only the first gives the
     same bits every run (``kernels.fwarp_guarded``; which kernel served
     a call is counted on the device, ``kernels.fwarp_served``)."""
-    img = img.contiguous()
-    flo = flo.contiguous()
+    img = kernels.nchw(img)
+    flo = kernels.nchw(flo)
     if shard is not None:
         return tuple(_fwarp_rows([(img, flo)], shift_d, shard)[0])
     if shift_d <= 0:
@@ -421,10 +425,10 @@ def fwarp_pair(img_a: torch.Tensor, flo_a: torch.Tensor,
                          f"{tuple(flo_b.shape)}")
     if shard is not None:
         return tuple(tuple(half) for half in _fwarp_rows(
-            [(img_a.contiguous(), flo_a.contiguous()),
-             (img_b.contiguous(), flo_b.contiguous())], shift_d, shard))
-    return kernels.fwarp_pair(img_a.contiguous(), flo_a.contiguous(),
-                              img_b.contiguous(), flo_b.contiguous(),
+            [(kernels.nchw(img_a), kernels.nchw(flo_a)),
+             (kernels.nchw(img_b), kernels.nchw(flo_b))], shift_d, shard))
+    return kernels.fwarp_pair(kernels.nchw(img_a), kernels.nchw(flo_a),
+                              kernels.nchw(img_b), kernels.nchw(flo_b),
                               shift_d)
 
 

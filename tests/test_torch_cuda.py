@@ -18,7 +18,10 @@ with float atomics, in an order that varies from run to run; both sum
 in another order than autograd; its coordinates' gradient repeats
 bitwise); the splat's backward repeats bitwise.
 Gradients of the whole network, card against CPU: a relative Frobenius
-error of 1e-3 or less per tensor.
+error of 1e-3 or less per tensor. The bfloat16 model in channels_last
+against itself patched back to NCHW: the rules of tests/test_torch_bf16.py
+for whole outputs (moments within 0.08, NaN where NaN) and for a train
+step's gradients.
 """
 import dataclasses
 
@@ -29,8 +32,9 @@ import torch
 from demfi_torch import disable_tf32
 from demfi_torch.config import config_rb
 from demfi_torch.infer import InferenceEngine, WindowResult
-from demfi_torch.models import make_model
+from demfi_torch.models import demfi, make_model
 from demfi_torch.ops import kernels, warp
+from demfi_torch.train import create_train_state, make_train_step
 from demfi_torch.utils import grad_check
 from demfi_torch.utils.profiling import calibrate_flow_head
 
@@ -541,6 +545,102 @@ def test_engine_card_matches_cpu(cuda_device):
     for f in dataclasses.fields(WindowResult):
         np.testing.assert_allclose(getattr(got, f.name), getattr(want, f.name),
                                    atol=1e-3, rtol=1e-3, err_msg=f.name)
+
+
+# ------------------------------------------------ bf16 memory format
+MOMENTS = 0.08      # tests/test_torch_bf16.py, (c)
+
+
+def _nchw_model(monkeypatch):
+    """The model's format chooser patched back to NCHW."""
+    monkeypatch.setattr(demfi, "activation_format",
+                        lambda dt, dev: torch.contiguous_format)
+
+
+def _output_fields(out) -> dict:
+    got = {}
+    for f in dataclasses.fields(out):
+        v = getattr(out, f.name)
+        for i, x in enumerate(v if isinstance(v, tuple) else (v,)):
+            got[f"{f.name}{i}"] = x.float().cpu().numpy().astype(np.float64)
+    return got
+
+
+@pytest.mark.cuda
+def test_bf16_model_runs_channels_last_on_the_card(cuda_device, monkeypatch):
+    """DeMFI-Net_rb(2,2) in bfloat16 at 64x96, 3 instants, on the card:
+    every convolution gets its input channels_last (100 % of the calls in
+    the layout), the warps' inputs are copied to NCHW and counted, and
+    every output has the NaN sites, mean and std (within 0.08) of the
+    same model patched back to NCHW: the rule of tests/test_torch_bf16.py
+    (c), since bfloat16 rounding in another order is chaotic through the
+    depth."""
+    model = make_model(config_rb(2, 2, seed=11, compute_dtype="bfloat16"))
+    rng = np.random.RandomState(8)
+    frames = torch.from_numpy(rng.uniform(-1, 1, (1, 4, 3, 64, 96)).astype(
+        np.float32)).to(cuda_device)
+    calibrate_flow_head(model, frames, 6.0)
+    t = torch.tensor([0.25, 0.5, 0.75], device=cuda_device)
+
+    def serve():
+        kernels.reset_layout_counts()
+        with torch.no_grad():
+            out = model.synthesize(model.extract(frames).repeat(3), t, 2)
+        return _output_fields(out), kernels.layout_counts()
+    got, counts = serve()
+    assert counts["conv_calls"] > 0
+    assert counts["conv_in_layout"] == counts["conv_calls"]
+    assert counts["warp_copies"] == 4 + 4 + 2 + 4 + 4 * 2
+    _nchw_model(monkeypatch)
+    want, nchw_counts = serve()
+    assert nchw_counts["conv_calls"] == counts["conv_calls"]
+    assert nchw_counts["conv_in_layout"] == counts["conv_calls"]
+    assert nchw_counts["warp_copies"] == 0
+    assert set(got) == set(want)
+    for name, w in want.items():
+        g = got[name]
+        assert g.shape == w.shape, name
+        np.testing.assert_array_equal(np.isnan(g), np.isnan(w), err_msg=name)
+        ok = ~np.isnan(w)
+        assert abs(g[ok].mean() - w[ok].mean()) <= MOMENTS, name
+        assert abs(g[ok].std() - w[ok].std()) <= MOMENTS, name
+
+
+@pytest.mark.cuda
+def test_bf16_train_step_channels_last_on_the_card(cuda_device, monkeypatch):
+    """A bfloat16 train step of DeMFI-Net_rb(2,2) at batch 2, 64x64 on the
+    card, channels_last against the same step patched back to NCHW, the
+    rule of tests/test_torch_bf16.py (d): the loss within 1e-2
+    (relative) and each gradient within the larger of 1e-2 and twice the
+    NCHW step's own change under a 1e-6 nudge of the batch, the largest
+    of three nudges (a bias's bfloat16 gradient sums cotangents that
+    cancel: one nudge moved one by 14 %, and the layout by 29 %)."""
+    rng = np.random.RandomState(12)
+    frames = rng.uniform(-1, 1, (2, 9, 64, 64, 3)).astype(np.float32)
+    nudges = [frames + (rng.randn(*frames.shape) * 1e-6).astype(np.float32)
+              for _ in range(3)]
+    t = np.array([[0.25], [0.625]], np.float32)
+    cfg = config_rb(2, 2, seed=13, compute_dtype="bfloat16")
+
+    def step(batch):
+        model = make_model(cfg)
+        kernels.reset_layout_counts()
+        loss = float(make_train_step(cfg)(create_train_state(cfg, model),
+                                          batch, t)["total_loss"])
+        return loss, {k: p.grad.cpu() for k, p in model.named_parameters()
+                      if p.grad is not None}, kernels.layout_counts()
+    loss, got, counts = step(frames)
+    assert counts["conv_in_layout"] == counts["conv_calls"] > 0
+    _nchw_model(monkeypatch)
+    want_loss, want, _ = step(frames)
+    moved = [step(nudged)[1] for nudged in nudges]
+    assert loss == pytest.approx(want_loss, rel=1e-2)
+    assert set(got) == set(want)
+    for k, g in want.items():
+        err = grad_check.rel_frobenius(got[k], g)
+        bound = max(1e-2, 2 * max(grad_check.rel_frobenius(m[k], g)
+                                  for m in moved))
+        assert err <= bound, (k, err, bound)
 
 
 # --------------------------------------------------------------- backward
