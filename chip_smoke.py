@@ -56,12 +56,24 @@ Phases:
      (warm-up, then timed runs; the rate is all windows over all their
      time, printed beside each window's seconds); every output finite
      and of its shape, and exactly 7 gather and 2 splat launches per
-     window; the device's busy share of one profiled window;
+     window, and its 179 convolutions by what follows each
+     (``kernels.epilogue_counts``: 34 the bias alone, 107 a ReLU, 38 a
+     residual add), none through the epilogue kernel; the device's busy
+     share of one profiled window;
   4b. the same at --compute_dtype bfloat16 on the same weights: the same
-     numbers, 5 of the 7 gathers on the bfloat16 instantiation, float32
-     on the host, the PSNR of its frames against phase 4's through
-     ``bf16_serving_label``; then each of the two with cudnn.benchmark
-     off and on in turns (the default, off, is left as it is);
+     numbers, 5 of the 7 gathers on the bfloat16 instantiation, all 179
+     convolution epilogues through the epilogue kernel, float32 on the
+     host, the PSNR of its frames against phase 4's through
+     ``bf16_serving_label``;
+  4c. the convolution epilogue kernel (``kernels.conv_epilogue``) at
+     every (output shape, form) that one bfloat16 window launches it
+     with, at 352x640 and at 720x1280 (the HD serving geometry): the
+     window's launches by form, then per case the kernel bit for bit
+     its plain version on random values with NaN, infinities and signed
+     zeros planted, its device ms (cold calls), the plain version's and
+     the bound by bytes, summed over a window; then phases 4 and 4b with
+     cudnn.benchmark off and on in turns (the default, off, is left as
+     it is);
   5. whole path: the card (kernels) against the port on the CPU (plain
      versions) at 64x96 on the same weights, every WindowResult field,
      with cudnn.benchmark on and off;
@@ -192,7 +204,9 @@ Phases:
      forward_windows (every field or the images fetched) and through the
      bench (the full t-batch and three instants a call), with the busy
      share of one profiled bf16 bench window; the ratio of its 352x640
-     values to 7 x phase 4's and 4b's windows/s, printed.
+     values to 7 x phase 4's and 4b's windows/s, printed. The bench's
+     launches include the convolution epilogue's (179 a bfloat16
+     window, none at float32).
 Phase 3e (also under ``--kernels-of``): the three forward kernels on
 every shard of 2- and 4-way row splits of the 352x640 frame, against
 their plain versions and the unsplit kernel's rows (gather 1e-5, its
@@ -206,7 +220,8 @@ us beside the unsplit launch's; "row_offset" of the backward kernels'
 entries.
 
 Prints "[9 summary]", "[11 summary]" and "[12 summary]" lines and a {"kernels":
-[...]} line, then as its last line
+[...]} line (the epilogue kernel's entries from phase 4c, one for each
+frame size), then as its last line
 {"ok": true, "device": {"platform": "gpu", ...}}. Any failed phase exits
 non-zero before either is printed; so does a run without a CUDA card.
 """
@@ -273,6 +288,12 @@ CLI_TRAIN_SCENES, CLI_BLUR_FRAMES = 4, 4
 # gather bfloat16 values, FGAC's two samples stay float32
 BF16_GATHERS_PER_WINDOW = 5    # 2 feature pairs + 3 booster pairs
 TRAIN_BF16_LAUNCHES = {"bilinear_gather": 7, "bilinear_gather_bwd": 7}
+# a window's convolutions (N_tst 3) by what follows each
+# (kernels.epilogue_counts); in a bfloat16 window without autograd every
+# one of them is a launch of the epilogue kernel (conv_epilogue)
+EPILOGUE_FORMS = {"bias": 34, "bias_relu": 107, "bias_residual": 38}
+EPILOGUE_PER_WINDOW = sum(EPILOGUE_FORMS.values())        # 179
+EPILOGUE_HD = (720, 1280)       # phase 4c's second frame (padded to 736)
 # the backward's bfloat16 image gradient against its plain vjp: of the
 # largest value (a bfloat16 rounding is 2^-8 of the value)
 BWD_BF16_IMG_RTOL = 1e-2
@@ -2944,6 +2965,125 @@ def spatial_phase(torch, dev, tmp: Path, weights: dict, frames, ts,
     return summary
 
 
+def epilogue_cases(torch, engine, frames, ts) -> dict:
+    """{(output shape, form): launches} of the convolution epilogue kernel
+    (``kernels.conv_epilogue``, which the model looks up at each call) in
+    one window of ``engine`` on ``frames``."""
+    from demfi_torch.ops import kernels
+    seen = {}
+    real = kernels.conv_epilogue
+
+    def spy(y, bias, relu=False, residual=None):
+        form = ("bias_relu" if relu else "bias" if residual is None
+                else "bias_residual")
+        key = (tuple(y.shape), form)
+        seen[key] = seen.get(key, 0) + 1
+        return real(y, bias, relu, residual)
+    kernels.conv_epilogue = spy
+    try:
+        engine.forward_windows(frames, ts)
+        torch.cuda.synchronize()
+    finally:
+        kernels.conv_epilogue = real
+    return seen
+
+
+def epilogue_inputs(torch, dev, shape, seed: int):
+    """(y, bias, residual) for one epilogue case: y and the residual
+    bfloat16 channels_last of ``shape``, normal values with NaN, +-inf,
+    +-0 and values that cancel planted (at most 4096 each); bias float32
+    normal with an infinity and a -0.0 where C > 3."""
+    g = torch.Generator(device=dev).manual_seed(seed)
+    specials = torch.tensor([float("nan"), float("inf"), float("-inf"), 0.0,
+                             -0.0, 1e-30, -1e-30, 3e38], device=dev)
+
+    def planted():
+        n, c, h, w = shape
+        v = torch.randn((n, h, w, c), generator=g, device=dev) * 2
+        flat = v.view(-1)
+        k = min(flat.numel(), 4096)
+        idx = torch.randint(0, flat.numel(), (k,), generator=g, device=dev)
+        flat[idx] = specials[torch.randint(0, len(specials), (k,),
+                                           generator=g, device=dev)]
+        return v.to(torch.bfloat16).permute(0, 3, 1, 2)
+    y, r = planted(), planted()
+    b = torch.randn(shape[1], generator=g, device=dev)
+    if shape[1] > 3:
+        b[2], b[3] = float("inf"), -0.0
+    return y, b, r
+
+
+def epilogue_phase(torch, dev, engine16, frames, ts) -> list:
+    """Phase 4c: the convolution epilogue kernel at every (output shape,
+    form) that one bfloat16 window launches it with, on 352x640 frames
+    (phase 4b's) and on 720x1280 frames (the HD serving geometry, padded
+    to 736x1280): the window's sites by form (EPILOGUE_FORMS, every one
+    a launch), then per case the kernel bit for bit its plain version
+    (``kernels.conv_epilogue_plain``, the separate ops in place) on
+    random values with specials planted, and its device ms (cold, L2
+    flushed: DeviceTimer) beside the plain version's and the bound by
+    bytes (one read and one write of y, one read of the residual, the
+    float32 bias). Returns one row a case."""
+    from demfi_torch.ops import kernels
+    timer = DeviceTimer(torch)
+    hd = np.random.RandomState(SEED + 3).uniform(
+        -1, 1, (1, 4, *EPILOGUE_HD, 3)).astype(np.float32)
+    rows = []
+    for label, fr in ((f"{H}x{W}", frames),
+                      ("{}x{}".format(*EPILOGUE_HD), hd)):
+        cases = epilogue_cases(torch, engine16, fr, ts)
+        forms = dict.fromkeys(EPILOGUE_FORMS, 0)
+        for (_, form), k in cases.items():
+            forms[form] += k
+        check(forms == EPILOGUE_FORMS, f"4c epilogue {label}: one window's "
+              f"launches by form {forms}, expected {EPILOGUE_FORMS}")
+        mine = []
+        for i, ((shape, form), k) in enumerate(sorted(cases.items())):
+            y, b, r = epilogue_inputs(torch, dev, shape, SEED + i)
+            relu = form == "bias_relu"
+            res = r if form == "bias_residual" else None
+            got = kernels.conv_epilogue(y.clone(memory_format=torch.
+                                                channels_last), b, relu, res)
+            want = kernels.conv_epilogue_plain(
+                y.clone(memory_format=torch.channels_last), b, relu, res)
+            bad = int((got.view(torch.int16)
+                       != want.view(torch.int16)).sum())
+            check(bad == 0, f"4c epilogue {label} {shape} {form}: {bad} "
+                  f"values differ from the plain version")
+            del got, want
+            nbytes = y.numel() * 2 * (3 if res is not None else 2) \
+                + shape[1] * 4
+            ops = y.numel() * (1 if form == "bias" else 2)
+            mine.append(dict(
+                kernel="conv_epilogue", frame=label, shape=list(shape),
+                form=form, per_window=k, max_abs_err=0.0,
+                ms=timer.ms(lambda: kernels.conv_epilogue(y, b, relu, res),
+                            5),
+                plain_ms=timer.ms(lambda: kernels.conv_epilogue_plain(
+                    y, b, relu, res), 5),
+                library_ms=None, gb=nbytes / 1e9, **bound_of(nbytes, ops)))
+            del y, b, r, res
+        torch.cuda.empty_cache()
+        rows += mine
+
+        def total(key):
+            return sum(r[key] * r["per_window"] for r in mine)
+        big = max(mine, key=lambda r: r["gb"])
+        say(f"[4c epilogue] {label} bfloat16 window: "
+            f"{sum(cases.values())} launches over {len(mine)} (shape, form) "
+            f"cases, by form {forms}, C in "
+            f"{sorted({r['shape'][1] for r in mine})}; every case bit for "
+            f"bit the plain version, NaN, infinities and signed zeros "
+            f"planted; a window's kernel {total('ms'):.3f} ms device (cold "
+            f"calls summed), plain {total('plain_ms'):.3f} ms, bound "
+            f"{total('bound_ms'):.3f} ms by bytes "
+            f"({total('gb'):.2f} GB at {HBM_BYTES_PER_S / 1e12:.2f} TB/s; "
+            f"kernel at {total('ms') / total('bound_ms'):.2f}x); largest "
+            f"case {big['shape']} {big['form']} {big['ms']:.4f} ms, "
+            f"{100 * big['bound_ms'] / big['ms']:.1f} % of the bound")
+    return rows
+
+
 def _bench_argv(flags):
     """The command of one bench process, run from this checkout."""
     return ([sys.executable, "-m", "demfi_torch.bench"] + flags
@@ -3022,13 +3162,16 @@ def bench_phase(torch, dev, s_win: float, s_win16: float,
             def window(m=m, chunk=None):
                 return bench.window_checksum(m, frames, ts, 3, chunk)
             kernels.reset_launch_counts()
+            kernels.reset_layout_counts()
             cs = float(window())
-            counts = kernels.launch_counts()
+            counts = bench.launch_counts()
             bf16 = kernels.bf16_launch_counts()
             check(counts == {"bilinear_gather": GATHERS_PER_WINDOW,
                              "fwarp_splat": SPLATS_PER_WINDOW,
                              "fwarp_shift": 0, "bilinear_gather_bwd": 0,
-                             "fwarp_splat_bwd": 0}
+                             "fwarp_splat_bwd": 0,
+                             "conv_epilogue": (EPILOGUE_PER_WINDOW
+                                               if dtype == "bfloat16" else 0)}
                   and bf16["bilinear_gather"] == (
                       BF16_GATHERS_PER_WINDOW if dtype == "bfloat16" else 0),
                   f"12 bench {dtype}: one window launched {counts}, of them "
@@ -3646,6 +3789,7 @@ def main() -> int:
     base = torch.cuda.memory_allocated()
     torch.cuda.reset_peak_memory_stats()
     kernels.reset_launch_counts()
+    kernels.reset_layout_counts()
     kernels.fwarp_served(dev, reset=True)
     secs = []
     for _ in range(REPEATS):
@@ -3654,6 +3798,7 @@ def main() -> int:
         torch.cuda.synchronize()
         secs.append(time.perf_counter() - t0)
     counts = kernels.launch_counts()
+    epi = kernels.epilogue_counts()
     served = kernels.fwarp_served(dev)
     peak_bytes = torch.cuda.max_memory_allocated()
     per_pi = (peak_bytes - base) / (H * W * (M - 1))
@@ -3669,6 +3814,10 @@ def main() -> int:
                    "fwarp_splat_bwd": 0}
     check(counts == want_counts,
           f"launch counts {counts} != {want_counts} over {REPEATS} windows")
+    want_epi = {k: v * REPEATS for k, v in EPILOGUE_FORMS.items()}
+    check(epi == dict(want_epi, fused=0),
+          f"float32 epilogues {epi} over {REPEATS} windows, expected the "
+          f"forms {want_epi} and none fused")
     check(served == {"fwarp_shift": 0,
                      "fwarp_splat": SPLATS_PER_WINDOW * REPEATS},
           f"forward warps served by {served}")
@@ -3698,6 +3847,7 @@ def main() -> int:
     base16 = torch.cuda.memory_allocated()
     torch.cuda.reset_peak_memory_stats()
     kernels.reset_launch_counts()
+    kernels.reset_layout_counts()
     kernels.fwarp_served(dev, reset=True)
     secs16 = []
     for _ in range(REPEATS):
@@ -3707,6 +3857,7 @@ def main() -> int:
         secs16.append(time.perf_counter() - t0)
     counts16 = kernels.launch_counts()
     bf16_counts = kernels.bf16_launch_counts()
+    epi16 = kernels.epilogue_counts()
     served16 = kernels.fwarp_served(dev)
     peak16 = torch.cuda.max_memory_allocated()
     per_pi16 = (peak16 - base16) / (H * W * (M - 1))
@@ -3722,6 +3873,9 @@ def main() -> int:
                           "bilinear_gather_bwd": 0},
           f"bfloat16 instantiation launches {bf16_counts}")
     check(served16 == served, f"bfloat16 forward warps served by {served16}")
+    check(epi16 == dict(want_epi, fused=EPILOGUE_PER_WINDOW * REPEATS),
+          f"bfloat16 epilogues {epi16} over {REPEATS} windows, expected the "
+          f"forms {want_epi}, every one fused")
     # the served frames: 7 interpolated, the 2 deblurred centre frames
     def served_frames(r):
         return denorm255(np.concatenate([r.st_final, r.s0_final[:1],
@@ -3743,9 +3897,13 @@ def main() -> int:
         f"{100 * busy:.1f} %); peak allocated {peak16 / 2 ** 30:.3f} GiB "
         f"({per_pi16:.0f} B per pixel-instant above the weights, float32 "
         f"{per_pi:.0f}); launches {counts16}, of them the bfloat16 "
-        f"instantiation's {bf16_counts}; host dtype float32; PSNR of the "
+        f"instantiation's {bf16_counts}; convolution epilogues {epi16} "
+        f"(float32 {epi}); host dtype float32; PSNR of the "
         f"bfloat16 output against the float32 output on this window "
         f"(random weights) {psnr16:.3f} dB -> {label16}")
+
+    # -------------------------- 4c. the convolution epilogue, by shape
+    epi_rows = epilogue_phase(torch, dev, engine16, frames, ts)
 
     # ----- cudnn.benchmark off against on (the default, off, is restored)
     bench_secs = {}
@@ -4121,6 +4279,9 @@ def main() -> int:
     gather_bwd_src = "demfi_torch/csrc/bilinear_gather_bwd.cu"
     gather_bwd_replaces = ("demfi_tpu/ops/warp.py:448 (no Pallas kernel: the "
                            "vjp of _bwarp_xla, and of _bilinear_abs_xla :494)")
+    epilogue_replaces = ("none (XLA fuses the bias add and the ReLU or "
+                         "residual add after each convolution of the JAX "
+                         "model)")
     say("[9 summary] " + json.dumps(last, default=str))
     say(json.dumps({"kernels": [
         summary("bilinear_gather", gather_src,
@@ -4164,7 +4325,20 @@ def main() -> int:
         bwd_summary("fwarp_splat_bwd", "demfi_torch/csrc/fwarp_splat_bwd.cu",
                     "demfi_tpu/ops/warp.py:549 (no Pallas kernel: the vjp of "
                     "_fwarp_xla)"),
-    ], "card": card, "splat_tile_spread": tile_spread,
+    ] + [entry(
+        "conv_epilogue" + ("" if frame == f"{H}x{W}" else f" ({frame})"),
+        "demfi_torch/csrc/conv_epilogue.cu", epilogue_replaces,
+        launches, [r for r in epi_rows if r["frame"] == frame],
+        "per_window", dict(
+            launches_per_window=EPILOGUE_PER_WINDOW,
+            launches_bench_path=bench12["launches"]["bfloat16"]["counts"][
+                "conv_epilogue"],
+            times_are="per bfloat16 window on " + frame + " frames, summed "
+                      "over its launches (cold calls)"))
+        for frame, launches in ((f"{H}x{W}", epi16["fused"]),
+                                ("{}x{}".format(*EPILOGUE_HD),
+                                 EPILOGUE_PER_WINDOW))],
+        "card": card, "splat_tile_spread": tile_spread,
         "windows_per_s": 1 / s_win,
         "frames_per_s": (M - 1) / s_win, "window_seconds": secs,
         "device_busy_share": busy,

@@ -181,6 +181,16 @@ def window_checksum(model: DeMFINet, frames: torch.Tensor, ts: torch.Tensor,
     return total
 
 
+def launch_counts() -> Dict[str, int]:
+    """The port's kernels' launches since the last reset of both
+    counters (``kernels.reset_launch_counts`` and
+    ``reset_layout_counts``): the warps' (``kernels.launch_counts``) and
+    the convolution epilogue's (``conv_epilogue``, the ``fused`` count of
+    ``kernels.epilogue_counts``)."""
+    return dict(kernels.launch_counts(),
+                conv_epilogue=kernels.epilogue_counts()["fused"])
+
+
 def launches_text(counts: Dict[str, int], bf16_counts: Dict[str, int],
                   windows: int) -> str:
     """The kernels launched, a timed window each, for the record's mode."""
@@ -272,8 +282,9 @@ def run_bench(args) -> dict:
                     f"host clock ({inner}-window timed region{shape})")
         float(window())                 # warm-up: kernel build, cuDNN plans
         kernels.reset_launch_counts()
+        kernels.reset_layout_counts()
         dt, cs = _timed(window, iters, n_inner, on_card)
-        launches = launches_text(kernels.launch_counts(),
+        launches = launches_text(launch_counts(),
                                  kernels.bf16_launch_counts(), iters * n_inner)
         return dt, cs, mode, launches
 

@@ -44,6 +44,15 @@ warp kernels take NCHW: their inputs are copied there
 (``kernels.nchw``). ``kernels.layout_counts`` counts the convolutions,
 those whose input arrived in the format, and those copies.
 
+Convolution epilogues: at each convolution the step that follows it
+(a ReLU, a residual add, or nothing) is passed to the convolution
+(``relu=True``, ``residual=x``) rather than applied by the caller, so
+that a bfloat16 model on the card adds the bias and takes that step in
+one in-place pass of its output (``kernels.conv_epilogue``, under
+:func:`_conv_in`'s conditions); every other run applies the same ops
+one by one, as before. ``kernels.epilogue_counts`` counts the sites by
+form and those that took the kernel.
+
 Rows of a split frame (``--mesh_spatial``, :meth:`DeMFINet.rows`): the
 model may run on rows [r0, r1) of a frame whose other rows other ranks
 hold (a :class:`~demfi_torch.parallel.RowShard`), and its outputs are
@@ -129,22 +138,41 @@ def _as(x: torch.Tensor, dt: torch.dtype,
 
 
 def _conv_in(dt: torch.dtype, conv, x: torch.Tensor, weight: torch.Tensor,
-             bias: torch.Tensor) -> torch.Tensor:
+             bias: torch.Tensor, relu: bool = False,
+             residual: Optional[torch.Tensor] = None) -> torch.Tensor:
     """``conv(x, weight, bias)`` in the compute dtype ``dt``, its input and
     weight in the model's memory format (:func:`activation_format`;
-    counted in ``kernels.layout_counts``). At float32 the bias is fused
-    into the convolution. At bfloat16 the bias is cast and added after the
+    counted in ``kernels.layout_counts``), then the one step its site
+    applies to it: ``F.relu`` (``relu``) or ``residual + y``
+    (``residual``), or neither (the forms are counted in
+    ``kernels.epilogue_counts``). At float32 the bias is fused into the
+    convolution. At bfloat16 the bias is cast and added after the
     convolution, in bfloat16, as flax's ``nn.Conv(dtype=bfloat16)`` does:
     the convolution rounds once and the bias add once more. Fusing the
     bias rounds once, and that one rounding moves the bfloat16 network's
     outputs as far from the JAX model's as bfloat16 moves them from
-    float32."""
+    float32. Where the bfloat16 output may be updated in place
+    (``kernels.conv_epilogue_takes``: on the card, dense channels_last,
+    autograd not recording) the bias add and the step after it are one
+    pass of ``kernels.conv_epilogue``, with the same roundings and the
+    same bits; every other run takes the separate ops."""
     fmt = activation_format(dt, x.device)
-    kernels.count_conv(x.is_contiguous(memory_format=fmt))
+    kernels.count_conv(x.is_contiguous(memory_format=fmt),
+                       "bias_relu" if relu else "bias" if residual is None
+                       else "bias_residual")
     x, weight = _as(x, dt, fmt), _as(weight, dt, fmt)
     if dt == torch.float32:
-        return conv(x, weight, bias)
-    return conv(x, weight, None) + bias.to(dt)[:, None, None]
+        y = conv(x, weight, bias)
+    else:
+        y = conv(x, weight, None)
+        if kernels.conv_epilogue_takes(y, bias, residual):
+            # in place: y is this convolution's own new output, which
+            # nothing else holds
+            return kernels.conv_epilogue(y, bias, relu, residual)
+        y = y + bias.to(dt)[:, None, None]
+    if relu:
+        return F.relu(y)
+    return y if residual is None else residual + y
 
 
 def _rows_conv(shard, stride, padding):
@@ -164,15 +192,19 @@ def _rows_conv(shard, stride, padding):
 class _Conv(nn.Conv2d):
     """nn.Conv2d in the model's compute dtype (:func:`_conv_in`); the
     parameters stay float32. Over a shard's rows where ``shard`` is
-    set."""
+    set. ``relu`` and ``residual`` as for :func:`_conv_in`: the step the
+    caller applies to the output (called with ``x`` alone, the module
+    returns the convolution with its bias, as nn.Conv2d does)."""
 
     compute_dtype = torch.float32     # DeMFINet sets it on each instance
     shard = None                      # DeMFINet.rows sets it
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, relu: bool = False,
+                residual: Optional[torch.Tensor] = None) -> torch.Tensor:
         conv = self._conv_forward if self.shard is None else _rows_conv(
             self.shard, self.stride, self.padding)
-        return _conv_in(self.compute_dtype, conv, x, self.weight, self.bias)
+        return _conv_in(self.compute_dtype, conv, x, self.weight, self.bias,
+                        relu, residual)
 
 
 def _conv(cin: int, cout: int, k=3, stride: int = 1, pad=None) -> _Conv:
@@ -193,12 +225,13 @@ class _Conv3dT1(nn.Conv3d):
     def __init__(self, cin: int, cout: int):
         super().__init__(cin, cout, (1, 3, 3), padding=(0, 1, 1), bias=True)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, relu: bool = False,
+                residual: Optional[torch.Tensor] = None) -> torch.Tensor:
         conv = ((lambda i, k, b: F.conv2d(i, k, b, padding=1))
                 if self.shard is None
                 else _rows_conv(self.shard, (1, 1), (1, 1)))
         return _conv_in(self.compute_dtype, conv, x, self.weight[:, :, 0],
-                        self.bias)
+                        self.bias, relu, residual)
 
 
 def _sigmoid(x: torch.Tensor) -> torch.Tensor:
@@ -274,14 +307,17 @@ class _DepthToSpace(nn.Module):
 # Stage I building blocks
 # --------------------------------------------------------------------------
 class RDBConv(nn.Module):
-    """One dense conv of an RDB: conv + relu, concatenated to the input."""
+    """One dense conv of an RDB: conv + relu, concatenated to the input.
+    ``conv`` is a ``Sequential`` so that its parameters keep the
+    reference's ``state_dict`` keys (``conv.0.weight``); the ReLU is
+    passed to the convolution (:func:`_conv_in`)."""
 
     def __init__(self, cin: int, growth: int):
         super().__init__()
-        self.conv = nn.Sequential(_conv(cin, growth, 3), nn.ReLU())
+        self.conv = nn.Sequential(_conv(cin, growth, 3))
 
     def forward(self, x):
-        return torch.cat([x, self.conv(x)], dim=1)
+        return torch.cat([x, self.conv[0](x, relu=True)], dim=1)
 
 
 class RDB(nn.Module):
@@ -294,7 +330,7 @@ class RDB(nn.Module):
         self.LFF = _conv(g0 + n_convs * growth, g0, 1)
 
     def forward(self, x):
-        return self.LFF(self.convs(x)) + x
+        return self.LFF(self.convs(x), residual=x)
 
 
 class FFRDB(nn.Module):
@@ -327,7 +363,7 @@ class FFRDB(nn.Module):
         for rdb in self.RDBs:
             x = _remat(rdb, x) if self.remat_rdb else rdb(x)
             rdb_outs.append(x)
-        x = self.GFF(torch.cat(rdb_outs, dim=1)) + f1
+        x = self.GFF[1](self.GFF[0](torch.cat(rdb_outs, dim=1)), residual=f1)
         s = self.UPNet(x)
         f0f1 = torch.tanh(s[:, :2 * nf])
         flow_01 = s[:, 2 * nf:2 * nf + 2].float()
@@ -346,7 +382,7 @@ class ResBlock(nn.Module):
         self.conv2 = mk(nf, nf)
 
     def forward(self, x):
-        return x + self.conv2(F.relu(self.conv1(x)))
+        return self.conv2(self.conv1(x, relu=True), residual=x)
 
 
 class FGAC(nn.Module):
@@ -377,8 +413,8 @@ class FGAC(nn.Module):
                                  shard=self.shard),
                   dt, activation_format(dt, ref.device))
         e_s = self.fusion(fac)
-        w = _sigmoid(self.w_gen_2(F.relu(self.w_gen(
-            torch.cat([source, e_s], dim=1)))))
+        w = _sigmoid(self.w_gen_2(self.w_gen(torch.cat([source, e_s], dim=1),
+                                             relu=True)))
         bolstered = w * source + (1.0 - w) * e_s
         diff = _minmax_norm(torch.mean(torch.abs(bolstered - source), dim=1,
                                        keepdim=True), self.shard)
@@ -415,7 +451,7 @@ class FACFB(nn.Module):
     def forward(self, f0, f1, flow_10, flow_01):
         b = f0.shape[0]
         # both frames folded into the batch (frame-major), in their format
-        x = F.relu(self.conv_first(torch.cat([f0, f1], dim=0)))
+        x = self.conv_first(torch.cat([f0, f1], dim=0), relu=True)
         x = self.feature_extraction(x)
         enc0, enc1 = x[:b], x[b:]
         g10 = self.shared_FGAC if self.shared else self.FGAC_F1toF0
@@ -439,12 +475,12 @@ class RefineUNet(nn.Module):
         self.dec3 = _conv(nf, 2 * 2 + 1 + 2 * nf, 3)
 
     def forward(self, x):
-        e1 = F.relu(self.enc1(x))
-        e2 = F.relu(self.enc2(e1))
-        h = F.relu(self.enc3(e2))
-        h = _nearest_up2(F.relu(self.dec0(h)))
-        h = _nearest_up2(F.relu(self.dec1(torch.cat([h, e2], dim=1))))
-        h = _nearest_up2(F.relu(self.dec2(torch.cat([h, e1], dim=1))))
+        e1 = self.enc1(x, relu=True)
+        e2 = self.enc2(e1, relu=True)
+        h = self.enc3(e2, relu=True)
+        h = _nearest_up2(self.dec0(h, relu=True))
+        h = _nearest_up2(self.dec1(torch.cat([h, e2], dim=1), relu=True))
+        h = _nearest_up2(self.dec2(torch.cat([h, e1], dim=1), relu=True))
         return self.dec3(h)
 
 
@@ -466,13 +502,13 @@ class Mixer(nn.Module):
         self.conv_blend2 = _conv(nf // 2, nf, 3)
 
     def encode_ref(self, ref):
-        return F.relu(self.conv_ref2(F.relu(self.conv_ref1(ref))))
+        return self.conv_ref2(self.conv_ref1(ref, relu=True), relu=True)
 
     def forward(self, ref, delta, ref_enc=None):
         r = self.encode_ref(ref) if ref_enc is None else ref_enc
-        d = F.relu(self.conv_delta2(F.relu(self.conv_delta1(delta))))
-        h = F.relu(self.conv_blend1(torch.cat([r, d], dim=1)))
-        return F.relu(self.conv_blend2(h))
+        d = self.conv_delta2(self.conv_delta1(delta, relu=True), relu=True)
+        h = self.conv_blend1(torch.cat([r, d], dim=1), relu=True)
+        return self.conv_blend2(h, relu=True)
 
 
 class SepConvGRU(nn.Module):
@@ -520,7 +556,7 @@ class FlowOcc(nn.Module):
         self.conv2 = _conv(nf // 2, 5, 3)
 
     def forward(self, x):
-        return self.conv2(F.relu(self.conv1(x)))
+        return self.conv2(self.conv1(x, relu=True))
 
 
 class Booster(nn.Module):
@@ -768,10 +804,11 @@ class DeMFINet(nn.Module):
             # D1: joint 3-frame decode (frames folded into the batch,
             # frame-major)
             bsz = r_f0.shape[0]
-            out = F.relu(self.Dec_first(torch.cat([r_f0, r_f1, r_ft], dim=0)))
+            out = self.Dec_first(torch.cat([r_f0, r_f1, r_ft], dim=0),
+                                 relu=True)
             for blk in self.Decoder_res:
                 out = blk(out)
-            out = F.relu(self.Dec_last1(out))
+            out = self.Dec_last1(out, relu=True)
             out = self.Dec_last2(out)
             s0p, s1p, stp = out[:bsz], out[bsz:2 * bsz], out[2 * bsz:]
 
@@ -845,10 +882,10 @@ class DeMFINet(nn.Module):
             agg3 = torch.cat([s0p, s1p, st_new, f_rec, occ_0, rflow_t0,
                               rflow_t1, flow_10, flow_01, cast(ft0_f),
                               cast(ft1_f), cast(occ_0_f), frames], dim=1)
-            out = F.relu(self.Dec_first_2(agg3))
+            out = self.Dec_first_2(agg3, relu=True)
             for blk in self.Decoder_res_2:
                 out = blk(out)
-            out = F.relu(self.Dec_last1_2(out))
+            out = self.Dec_last1_2(out, relu=True)
             out = self.Dec_last2_2(out)
             ys = (delta_flow.float(), occ_0_f, out[:, 0:3] + s0p,
                   out[:, 3:6] + s1p, out[:, 6:9] + st_new)

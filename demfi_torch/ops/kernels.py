@@ -79,6 +79,17 @@ Two more carry their gradients. The JAX package's fast paths are
       or two. ``rows=(r0, Ho)`` as the forward's: a shard's source rows,
       its cotangents the whole frame's canvases.
 
+One more serves the model's bfloat16 convolutions, not the warps:
+
+  ``conv_epilogue`` (csrc/conv_epilogue.cu): a convolution's bias add and
+      the ReLU or residual add after it, in place on its bfloat16 output
+      held channels_last (NHWC), in one vectorised pass; the same
+      operations and roundings as the separate ops, so the same bits
+      (:func:`conv_epilogue_plain`). It replaces no TPU kernel (XLA fuses
+      these for the JAX model). The model takes it where
+      :func:`conv_epilogue_takes` holds: on the card, dense channels_last,
+      autograd not recording.
+
 Autograd: on the card, a call whose inputs require grad (with grad
 enabled) goes through a ``torch.autograd.Function`` that saves only its
 inputs and whose backward launches the backward kernel on the current
@@ -102,7 +113,9 @@ and its backward count their bfloat16 instantiation's launches in
 ``<wrapper>.bf16_launches`` as well. Beside them, :func:`layout_counts`
 counts the model's convolution calls, those whose input arrived in the
 model's activation layout, and the NCHW copies that the kernels'
-boundary (:func:`nchw`) makes of channels_last inputs.
+boundary (:func:`nchw`) makes of channels_last inputs, and
+:func:`epilogue_counts` the convolutions by the form of their epilogue
+and those that :func:`conv_epilogue` served.
 """
 from __future__ import annotations
 
@@ -127,7 +140,8 @@ SOURCES = {"bilinear_gather": "bilinear_gather.cu",
            "fwarp_splat": "fwarp_splat.cu",
            "fwarp_shift": "fwarp_shift.cu",
            "bilinear_gather_bwd": "bilinear_gather_bwd.cu",
-           "fwarp_splat_bwd": "fwarp_splat_bwd.cu"}
+           "fwarp_splat_bwd": "fwarp_splat_bwd.cu",
+           "conv_epilogue": "conv_epilogue.cu"}
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC"]
 
@@ -218,6 +232,10 @@ def _bind(name: str, lib: ctypes.CDLL) -> ctypes.CDLL:
                lib.demfi_bilinear_gather_bwd_bf16]
         fns[0].argtypes = [vp] * 9 + [i] * 8 + [vp]
         fns[1].argtypes = [vp] * 10 + [i] * 8 + [vp]
+    elif name == "conv_epilogue":
+        # y, bias, residual, n, C, relu, stream
+        fns = [lib.demfi_conv_epilogue_bf16]
+        fns[0].argtypes = [vp] * 3 + [ctypes.c_longlong, i, i, vp]
     elif name == "fwarp_splat_bwd":
         fns = [lib.demfi_fwarp_splat_bwd_f32]
         # img_a, img_b, flo_a, flo_b, gout_a, gout_b, gnorm_a, gnorm_b,
@@ -1058,6 +1076,99 @@ def fwarp_splat_bwd_pair(img_a, flo_a, gout_a, gnorm_a,
                                    rows=rows))
 
 
+# the widest output whose float32 bias a block of the epilogue kernel
+# stages in its 48 KB of shared memory
+EPILOGUE_MAX_C = 48 * 1024 // 4
+
+
+def conv_epilogue_plain(y: torch.Tensor, bias: torch.Tensor,
+                        relu: bool = False,
+                        residual: Optional[torch.Tensor] = None
+                        ) -> torch.Tensor:
+    """:func:`conv_epilogue`'s plain version, by the separate ops in
+    place: y + bias cast to y's dtype (broadcast over H and W), then
+    ``relu`` or ``residual + y``."""
+    torch.add(y, bias.to(y.dtype)[:, None, None], out=y)
+    if relu:
+        return torch.relu_(y)
+    if residual is not None:
+        torch.add(residual, y, out=y)
+    return y
+
+
+def _epilogue_refusal(y: torch.Tensor, bias: torch.Tensor,
+                      residual: Optional[torch.Tensor]):
+    """Why :func:`conv_epilogue`'s kernel cannot take these tensors, as
+    (exception type, message), or None: what it does not take, or a
+    gradient that autograd records through them (the kernel writes in
+    place and has no backward)."""
+    cl = torch.channels_last
+    if y.dtype != torch.bfloat16 or bias.dtype != torch.float32 or (
+            residual is not None and residual.dtype != y.dtype):
+        return TypeError, "expected a bfloat16 output and residual and a " \
+            "float32 bias"
+    if y.device.type != "cuda":
+        return ValueError, f"expected a CUDA output, got {y.device}"
+    if y.dim() != 4 or not y.is_contiguous(memory_format=cl):
+        return ValueError, "expected a dense channels_last [N, C, H, W] output"
+    if y.data_ptr() % 16 or (residual is not None
+                             and residual.data_ptr() % 16):
+        return ValueError, "the output and the residual must start on 16 " \
+            "bytes (the kernel moves 8 values a load)"
+    if y.shape[1] > EPILOGUE_MAX_C:
+        return ValueError, f"{y.shape[1]} channels, more than {EPILOGUE_MAX_C}"
+    if (bias.shape != (y.shape[1],) or bias.device != y.device
+            or not bias.is_contiguous()):
+        return ValueError, f"a bias {tuple(bias.shape)} on {bias.device} " \
+            f"for an output {tuple(y.shape)} on {y.device}"
+    if residual is not None and (
+            residual.shape != y.shape or residual.device != y.device
+            or not residual.is_contiguous(memory_format=cl)):
+        return ValueError, "the residual must be a dense channels_last " \
+            "tensor of the output's shape, on its device"
+    if _needs_grad(y, bias, *(() if residual is None else (residual,))):
+        return ValueError, "the in-place kernel has no backward: call it " \
+            "where autograd does not record"
+    return None
+
+
+def conv_epilogue_takes(y: torch.Tensor, bias: torch.Tensor,
+                        residual: Optional[torch.Tensor] = None) -> bool:
+    """Whether :func:`conv_epilogue` may update the convolution output y
+    in place on the card: y bfloat16 on a CUDA device, dense channels_last
+    (NHWC) with at most EPILOGUE_MAX_C channels, bias its float32 [C] on
+    that device, residual None or a bfloat16 dense channels_last tensor of
+    y's shape there, y and residual starting on 16 bytes, and autograd
+    recording no graph through any of them."""
+    return _epilogue_refusal(y, bias, residual) is None
+
+
+def conv_epilogue(y: torch.Tensor, bias: torch.Tensor, relu: bool = False,
+                  residual: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """The epilogue of a bfloat16 convolution, in place on its output y
+    [N, C, H, W] (returned): v = bf16(y + bf16(bias[c])), then
+    bf16(max(v, 0)) (NaN kept) where ``relu``, or bf16(residual + v) where
+    a residual is given (not both); bit for bit the separate ops
+    ``y + bias.to(bfloat16)[:, None, None]`` and ``F.relu`` or
+    ``residual + y``. The tensors must be what
+    :func:`conv_epilogue_takes` takes (on the card, dense channels_last,
+    aligned, bias float32), and nothing may need a gradient: the kernel
+    has no backward. Each launch counts as ``fused`` in
+    :func:`epilogue_counts`."""
+    if relu and residual is not None:
+        raise ValueError("conv_epilogue: a ReLU or a residual, not both")
+    refusal = _epilogue_refusal(y, bias, residual)
+    if refusal is not None:
+        raise refusal[0](f"conv_epilogue: {refusal[1]}")
+    rc = build()["conv_epilogue"].demfi_conv_epilogue_bf16(
+        y.data_ptr(), bias.data_ptr(),
+        None if residual is None else residual.data_ptr(), y.numel(),
+        y.shape[1], int(relu), _raw_stream(y.device))
+    _raise_on("conv_epilogue", rc)
+    _layout["fused"] += 1
+    return y
+
+
 WRAPPERS = (bilinear_gather, fwarp_splat, fwarp_shift, bilinear_gather_bwd,
             fwarp_splat_bwd)
 
@@ -1083,15 +1194,18 @@ def bf16_launch_counts() -> Dict[str, int]:
 
 
 LAYOUT_COUNTS = ("conv_calls", "conv_in_layout", "warp_copies")
-_layout = dict.fromkeys(LAYOUT_COUNTS, 0)
+EPILOGUE_COUNTS = ("bias", "bias_relu", "bias_residual", "fused")
+_layout = dict.fromkeys(LAYOUT_COUNTS + EPILOGUE_COUNTS, 0)
 
 
-def count_conv(in_layout: bool) -> None:
-    """Count one convolution call of the model, and whether its input
+def count_conv(in_layout: bool, epilogue: str = "bias") -> None:
+    """Count one convolution call of the model, whether its input
     arrived in the model's activation layout
-    (``demfi_torch.models.demfi.activation_format``)."""
+    (``demfi_torch.models.demfi.activation_format``), and the form of its
+    epilogue (``bias``, ``bias_relu`` or ``bias_residual``)."""
     _layout["conv_calls"] += 1
     _layout["conv_in_layout"] += bool(in_layout)
+    _layout[epilogue] += 1
 
 
 def nchw(t: torch.Tensor) -> torch.Tensor:
@@ -1106,7 +1220,8 @@ def nchw(t: torch.Tensor) -> torch.Tensor:
 
 
 def reset_layout_counts() -> None:
-    for k in LAYOUT_COUNTS:
+    """Zero :func:`layout_counts` and :func:`epilogue_counts`."""
+    for k in _layout:
         _layout[k] = 0
 
 
@@ -1117,7 +1232,17 @@ def layout_counts() -> Dict[str, int]:
     model's activation layout (``conv_in_layout``), and the copies into
     NCHW of channels_last inputs at the warp kernels' boundary
     (``warp_copies``)."""
-    return dict(_layout)
+    return {k: _layout[k] for k in LAYOUT_COUNTS}
+
+
+def epilogue_counts() -> Dict[str, int]:
+    """Since the last reset (:func:`reset_layout_counts`): the model's
+    convolution calls by what follows the convolution, the bias alone
+    (``bias``), the bias and a ReLU (``bias_relu``) or the bias and a
+    residual add (``bias_residual``), and the launches of
+    :func:`conv_epilogue`'s kernel, which did that in one pass
+    (``fused``)."""
+    return {k: _layout[k] for k in EPILOGUE_COUNTS}
 
 
 def fwarp_served(device=None, reset: bool = False) -> Dict[str, int]:

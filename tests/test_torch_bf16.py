@@ -300,7 +300,11 @@ def test_dtype_sites_catch_a_model_that_ignores_the_flag(golden, fault):
                        else "bfloat16")
     if fault == "one conv":         # computes in float32 whatever it gets
         conv = model.Refine_Module.dec1
-        conv.forward = lambda x: torch.nn.Conv2d.forward(conv, x.float())
+
+        def float32_conv(x, relu=False):     # its site passes the ReLU
+            y = torch.nn.Conv2d.forward(conv, x.float())
+            return F.relu(y) if relu else y
+        conv.forward = float32_conv
     elif fault == "gru":
         model.Booster_Module.GB.compute_dtype = torch.float32
     assert dtype_violations(model, frames, t) != []
